@@ -6,17 +6,22 @@
 Phases, each printing JSON lines:
   1. device and build: the card's name and power limit (nvidia-smi), then
      the kernels' build from ``src/repro_torch/csrc`` and its seconds;
-  2. serve: ``ServeExecutor`` on qwen2-0.5b at full width (24 layers,
-     d 896, 14/2 heads, vocab 151936, random weights from a seed) answers 8
-     requests of 1,000-token prompts, 32 new tokens each, through the
-     store-driven claim / prefill / decode / finish loop; the launch counts
-     of the flash and decode kernels are read from this run alone, and a
-     short request's logits on the card are held against the same model on
-     the CPU (plain versions);
+  2. serve, once per model family: ``ServeExecutor`` at full width, random
+     weights from a seed, answers 8 requests of 1,000-token prompts, 32 new
+     tokens each, through the store-driven claim / prefill / decode / finish
+     loop; first qwen2-0.5b (24 layers, d 896, 14/2 heads, vocab 151936:
+     the flash and decode attention kernels), then mamba2-1.3b (48 layers,
+     d 2048, 64 heads of P 64, state 128, chunk 256, vocab 50280: the SSD
+     scan kernel in every layer's prefill). The launch counts are read from
+     each run alone; a short request's logits on the card are held against
+     the same model on the CPU (plain versions); one more request runs under
+     the profiler;
   3. claim: a 936-worker work queue of 100,000 tasks claims through the
      ``wq_claim`` kernel, and must return the claim dicts of the host path;
   4. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes, with its error, its time and its bound, then
+     the main path's shapes (``ssd_scan`` also at a ragged length, in bf16,
+     and in a slow-decay case where the state carried across chunks
+     dominates the output), with its error, its time and its bound, then
      one ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises:
 the script then exits non-zero and does not print that line. Without a CUDA
@@ -44,6 +49,8 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # 
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
 from repro_torch.runtime.executor import ServeExecutor  # noqa: E402
@@ -60,16 +67,32 @@ BF16_STEP = 2.0 ** -7
 # summation order only; bf16 decode rounds every layer's activations to
 # 8 bits on both sides, at different places (scaled by the logits' size)
 SERVE_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+# limit of the SSD scan against its plain version (the sequential
+# recurrence): the reference's own rule, max |got - ref| / max |ref| < 1e-4,
+# per element of y and of the final state; bf16 outputs may also differ by
+# one bf16 step of their value (2**-7 * |ref|), as for attention
+SSD_REL_TOL = 1e-4
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12}
 
 SRC = {"wq_claim": "src/repro_torch/csrc/wq_claim.cu",
        "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-       "decode_attention": "src/repro_torch/csrc/decode_attention.cu"}
+       "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+       "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
 REPLACES = {"wq_claim": "src/repro/kernels/wq_claim/kernel.py:32",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:25",
-            "decode_attention": "src/repro/kernels/decode_attention/kernel.py:21"}
+            "decode_attention": "src/repro/kernels/decode_attention/kernel.py:21",
+            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:23"}
+# kernels a serve run of each family launches (wq_claim runs in the claim
+# phase), as functions of (layers, requests, new tokens): one flash launch
+# per layer and prefill, one decode launch per layer and decode step (the
+# first token comes from the prefill), one SSD scan per layer and prefill
+SERVE_LAUNCHES = {
+    "dense": {"flash_attention": lambda n_l, r, new: n_l * r,
+              "decode_attention": lambda n_l, r, new: n_l * r * (new - 1)},
+    "ssm": {"ssd_scan": lambda n_l, r, new: n_l * r},
+}
 
 
 def emit(obj) -> None:
@@ -121,6 +144,8 @@ def phase_serve(cfg, device, *, requests=8, prompt_len=1000, max_new=32,
     sync(ex.device)
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    want = {k: f(cfg.num_layers, requests, max_new)
+            for k, f in SERVE_LAUNCHES[cfg.family].items()}
     outs = [ex.wq.store.blobs[int(t)]["output"] for t in ids]
     tokens = int(sum(len(o) for o in outs))
     check(finished == requests == ex.wq.counts()["FINISHED"],
@@ -139,18 +164,14 @@ def phase_serve(cfg, device, *, requests=8, prompt_len=1000, max_new=32,
            "tokens_per_s": tokens / wall,
            "peak_mem_bytes": (torch.cuda.max_memory_allocated(ex.device)
                               if ex.device.type == "cuda" else None),
-           "launches": {"flash_attention": counts["flash_attention"],
-                        "decode_attention": counts["decode_attention"]},
+           "launches": {k: counts[k] for k in want},
            "q4": steer["q4"]}
     if ex.device.type == "cuda":
-        # one flash launch per layer and prefill, one decode launch per
-        # layer and decode step (the first token comes from the prefill)
-        want_fa = cfg.num_layers * requests
-        want_dec = cfg.num_layers * requests * (max_new - 1)
-        check(counts["flash_attention"] == want_fa,
-              f"flash launches {counts['flash_attention']} != {want_fa}")
-        check(counts["decode_attention"] == want_dec,
-              f"decode launches {counts['decode_attention']} != {want_dec}")
+        # exactly the path's kernels, and none of the other family's
+        for k, n in counts.items():
+            if k != "wq_claim":
+                check(n == want.get(k, 0), f"{k} launches {n} != "
+                      f"{want.get(k, 0)} ({cfg.name})")
     emit(res)
     return {"result": res, "executor": ex}
 
@@ -194,7 +215,8 @@ def phase_serve_check(ex, *, prompt_len=37, steps=3, seed=1) -> dict:
         check(a.shape == (1, 1, cfg.vocab_size), f"logits shape {a.shape}")
         check(bool(torch.isfinite(a).all()), f"non-finite logits at {i}")
         check(err <= tol, f"logits step {i}: {err} > {tol}")
-    res = {"phase": "serve_check", "prompt_len": prompt_len, "steps": errs}
+    res = {"phase": "serve_check", "arch": cfg.name,
+           "prompt_len": prompt_len, "steps": errs}
     emit(res)
     return res
 
@@ -216,7 +238,8 @@ def phase_serve_profile(ex, *, prompt_len=1000, max_new=9, seed=2) -> dict:
     by_name = _device_kernel_us(prof)
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    res = {"phase": "serve_profile", "prompt_len": prompt_len,
+    res = {"phase": "serve_profile", "arch": ex.cfg.name,
+           "prompt_len": prompt_len,
            "decode_steps": max_new - 1, "wall_s": wall,
            "device_busy_s": busy,
            "device_idle_share": (1.0 - busy / wall) if busy else None,
@@ -399,10 +422,95 @@ def _decode_case(dev, smax, hq, hkv, dh, kv_len, dtype, rng):
     return row
 
 
-def phase_kernels(cfg, device, launches: dict) -> dict:
-    """Every kernel against its plain version at the main path's shapes;
-    returns the ``{"kernels": [...]}`` record (one entry per kernel, at the
-    shape named in ``main_shape``)."""
+def ssd_inputs(rng, bh, s, p, n, heads_per_bc, *, slow=False,
+               dtype=torch.float32, device="cpu"):
+    """Inputs of the SSD scan, made with numpy: x ~ N(0, 1), B and C ~
+    N(0, 0.5^2) with one row per ``heads_per_bc`` heads. The serve path's
+    regime: dt = softplus(N(0, 1)) and a = -linspace(1, 16) over the heads
+    (the model's A_log init), so da runs from -0.3 to -30 a step and the
+    in-chunk cumsum reaches thousands. The slow-decay case: dt ~ 0.01 and
+    |a| <= 1, so the state carried across chunk boundaries dominates y."""
+    rows = bh // heads_per_bc
+    x = rng.standard_normal((bh, s, p))
+    bmat = rng.standard_normal((rows, s, n)) * 0.5
+    cmat = rng.standard_normal((rows, s, n)) * 0.5
+    if slow:
+        dt = 0.01 * np.exp(0.1 * rng.standard_normal((bh, s)))
+        a = -rng.uniform(0.1, 1.0, (bh, 1))
+    else:
+        dt = np.log1p(np.exp(rng.standard_normal((bh, s))))
+        a = -np.resize(np.linspace(1.0, 16.0, heads_per_bc), bh)[:, None]
+    return [torch.as_tensor(v, dtype=torch.float32, device=device).to(dtype)
+            for v in (x, bmat, cmat, dt, dt * a)]
+
+
+def ssd_error(got, ref) -> dict:
+    """The SSD scan's error against its plain version: y and the final
+    state, each as its largest ratio to the per-element limit
+    (``SSD_REL_TOL`` of the largest |ref|, plus one bf16 step of the value
+    for a bf16 y)."""
+    (y, st), (ry, rst) = got, ref
+    out = {}
+    for name, g, r in (("y_err", y, ry), ("state_err", st, rst)):
+        tol = SSD_REL_TOL * float(r.float().abs().max())
+        if r.dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * r.float().abs()
+        diff = (g.float() - r.float()).abs()
+        out[name] = {"max_abs_err": float(diff.max()),
+                     "rel_err": float(diff.max() / r.float().abs().max()),
+                     "err_over_tol": float((diff / tol).max())}
+    out["err_over_tol"] = max(out["y_err"]["err_over_tol"],
+                              out["state_err"]["err_over_tol"])
+    out["max_abs_err"] = out["y_err"]["max_abs_err"]
+    return out
+
+
+def ssd_ops_bytes(bh, s, p, n, chunk, heads_per_bc, dtype):
+    """Operations and bytes the SSD scan needs on these shapes: per chunk
+    the lower triangle of C.B^T (once per B/C row), its product with dt x,
+    C.S^T from the second chunk on, and the state update; each input read
+    and each output written once."""
+    rows, pairs, carry, upd = bh // heads_per_bc, 0, 0, 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        pairs += q * (q + 1) // 2
+        carry += q if c0 else 0
+        upd += q
+    ops = 2.0 * (rows * pairs * n + bh * pairs * p + bh * (carry + upd) * n * p)
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elt * (2 * bh * s * p + 2 * rows * s * n + 2 * bh * s) \
+        + 4 * bh * p * n
+    return ops, nbytes
+
+
+def _ssd_case(dev, case, b, h, s, p, n, chunk, dtype, slow, rng):
+    args = ssd_inputs(rng, b * h, s, p, n, h, slow=slow, dtype=dtype,
+                      device=dev)
+    kw = {"heads_per_bc": h}
+    got = ssd_scan_fwd(*args, chunk=chunk, **kw)
+    ref = ssd_scan_ref(*args, **kw)
+    err = ssd_error(got, ref)
+    check(got[0].dtype == dtype and err["err_over_tol"] <= 1.0,
+          f"ssd_scan {case}: {err}")
+    row = {"kernel": "ssd_scan", "case": case, "batch": b, "heads": h,
+           "seq": s, "head_dim": p, "state_dim": n, "chunk": chunk,
+           "dtype": str(dtype)[6:], **err, "tol": f"{SSD_REL_TOL} * max|ref|"
+           + (" + 2**-7 * |ref|" if dtype == torch.bfloat16 else ""),
+           "ms": time_ms(lambda: ssd_scan_fwd(*args, chunk=chunk, **kw), 20),
+           "plain_ms": time_ms(lambda: ssd_scan_ref(*args, **kw), 2, 1),
+           "library_ms": None}
+    row["device_ms"] = device_ms(lambda: ssd_scan_fwd(*args, chunk=chunk,
+                                                      **kw))
+    ops, nbytes = ssd_ops_bytes(b * h, s, p, n, chunk, h, dtype)
+    row.update(_bound(nbytes, ops, dtype))
+    return row
+
+
+def phase_kernels(cfg, scfg, device, launches: dict) -> dict:
+    """Every kernel against its plain version at the main path's shapes
+    (``cfg`` the dense model, ``scfg`` the SSM model); returns the
+    ``{"kernels": [...]}`` record (one entry per kernel, at the shape named
+    in ``main_shape``)."""
     dev = torch.device(device)
     rng = np.random.default_rng(0)
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -419,6 +527,14 @@ def phase_kernels(cfg, device, launches: dict) -> dict:
     # the same ragged length in fp32, held to the fp32 limit
     rows.append(_decode_case(dev, 4096, hq, hkv, dh, 1031, torch.float32,
                              rng))
+    ss = scfg.ssm
+    nh, p, n = scfg.num_heads, ss.head_dim, ss.state_dim
+    for case, s, dtype, slow in (("main", 1000, torch.float32, False),
+                                 ("ragged", 1031, torch.float32, False),
+                                 ("bf16", 1000, torch.bfloat16, False),
+                                 ("slow_decay", 4096, torch.float32, True)):
+        rows.append(_ssd_case(dev, case, 1, nh, s, p, n, ss.chunk, dtype,
+                              slow, rng))
     for r in rows:
         emit(r)
     main_shape = {  # the shape each kernel sees on the main path
@@ -426,7 +542,8 @@ def phase_kernels(cfg, device, launches: dict) -> dict:
         and r["k"] == 1,
         "flash_attention": lambda r: r["dtype"] == "float32",
         "decode_attention": lambda r: r["kv_len"] == 1000
-        and r["dtype"] == "bfloat16"}
+        and r["dtype"] == "bfloat16",
+        "ssd_scan": lambda r: r["case"] == "main"}
     out = []
     for name, pick in main_shape.items():
         r = next(r for r in rows if r["kernel"] == name and pick(r))
@@ -446,15 +563,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = phase_device()
-    cfg = get_config("qwen2-0.5b")
-    serve = phase_serve(cfg, dev)
-    launches = dict(serve["result"]["launches"])
-    phase_serve_check(serve["executor"])
-    phase_serve_profile(serve["executor"])
-    del serve
-    torch.cuda.empty_cache()
+    cfg, scfg = get_config("qwen2-0.5b"), get_config("mamba2-1.3b")
+    launches = {}
+    for c in (cfg, scfg):
+        serve = phase_serve(c, dev)
+        launches.update(serve["result"]["launches"])
+        phase_serve_check(serve["executor"])
+        phase_serve_profile(serve["executor"])
+        del serve        # free one model before the next is built
+        torch.cuda.empty_cache()
     launches.update(phase_claim(dev)["launches"])
-    kernels = phase_kernels(cfg, dev, launches)
+    kernels = phase_kernels(cfg, scfg, dev, launches)
     print(smi, flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,17 @@
 """Carry parameters across from the reference package.
 
-The reference keeps the dense decoder's params as a pytree of arrays whose
+The reference keeps the decoder's params as a pytree of arrays whose
 per-layer leaves are stacked on a leading [L] axis; its checkpointer
 flattens the tree to ``/``-joined keys (``embed/table``,
-``final_norm/scale``, ``layers/ln1/scale``, ``layers/attn/q/w``,
-``layers/attn/q/b``, ``layers/mlp/up/w``, ...). :func:`params_from_jax`
-takes that tree, nested or flat, as numpy arrays and returns a state dict
-of the port's :class:`~repro_torch.models.transformer.DecoderLM`: the layer
-axis is unstacked and ``[in, out]`` weights are transposed to
-``nn.Linear``'s ``[out, in]``. Nothing here imports JAX.
+``final_norm/scale``, ``layers/ln1/scale``; dense: ``layers/attn/q/w``,
+``layers/attn/q/b``, ``layers/mlp/up/w``, ...; SSM: ``layers/mixer/in_proj/w``,
+``layers/mixer/conv_w``, ``layers/mixer/A_log``, ``layers/mixer/norm/scale``,
+...). :func:`params_from_jax` takes that tree, nested or flat, as numpy
+arrays and returns a state dict of the port's
+:class:`~repro_torch.models.transformer.DecoderLM`: the layer axis is
+unstacked and the ``[in, out]`` weights (the ``w`` leaves) are transposed
+to ``nn.Linear``'s ``[out, in]``; every other leaf, the conv's ``[W, C]``
+``conv_w`` included, is copied as it is. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ def _leaf_name(parts) -> str:
 
 
 def params_from_jax(tree_or_flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict of the dense decoder from the reference's param tree."""
+    """State dict of the dense or SSM decoder from the reference's param
+    tree."""
     flat = flatten(tree_or_flat)
     sd: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():

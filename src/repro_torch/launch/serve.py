@@ -3,8 +3,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --requests 16 --device cpu
 
-``--device`` defaults to ``cuda``: prefill and decode attention then run the
-hand-written kernels, and the command fails when no card is present.
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --smoke --device cpu
+
+``--device`` defaults to ``cuda``: the model's kernels (attention for the
+dense family, the SSD scan for mamba2) then run as hand-written CUDA
+kernels, and the command fails when no card is present.
 """
 from __future__ import annotations
 

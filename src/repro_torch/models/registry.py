@@ -2,8 +2,8 @@
 
 ``build_model(cfg)`` returns a ``Model`` bundle of functions, as the
 reference's registry does; the executor invokes them per task. Only the
-dense family is ported; the others raise, naming the ROADMAP item that
-brings them.
+dense and SSM families are ported; the others raise, naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ from repro_torch.configs.base import (FAMILY_DENSE, FAMILY_ENCDEC,
 from repro_torch.models import transformer as T
 
 _WAITING = {
-    FAMILY_SSM: "ROADMAP Queue 1, the SSM family with the ssd_scan kernel",
     FAMILY_HYBRID: "ROADMAP Queue 1, the hybrid family with the rglru_scan "
                    "kernel and the ring-buffer cache",
     FAMILY_MOE: "ROADMAP Queue 1, the MoE / VLM / enc-dec families",
@@ -34,7 +33,7 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != FAMILY_DENSE:
+    if cfg.family not in (FAMILY_DENSE, FAMILY_SSM):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"{_WAITING.get(cfg.family, 'not planned')}")

@@ -1,12 +1,13 @@
-"""Decoder-only LM for the dense family: init, prefill with KV-cache build,
-and one decode step.
+"""Decoder-only LM for the dense and SSM families: init, prefill with cache
+build, and one decode step.
 
-PyTorch counterpart of the dense paths of ``repro/models/transformer.py``.
-The reference stacks per-layer leaves on a leading [L] axis and runs
-``lax.scan`` over them; here the layers are an ``nn.ModuleList`` and the
-scan is a loop. The KV cache keeps the reference's layout
-(``[L,B,Smax,Hkv,Dh]`` plus an int32 scalar ``idx``, both on the model's
-device), and decode writes it in place. The MoE, SSM, hybrid, VLM and
+PyTorch counterpart of the dense and SSM paths of
+``repro/models/transformer.py``. The reference stacks per-layer leaves on a
+leading [L] axis and runs ``lax.scan`` over them; here the layers are an
+``nn.ModuleList`` and the scan is a loop. The caches keep the reference's
+layouts on the model's device: the dense KV cache ``[L,B,Smax,Hkv,Dh]``, the
+SSM state ``{"conv": [L,B,W-1,Cin], "ssm": [L,B,H,P,N]}``, each with an
+int32 scalar ``idx``; decode writes them in place. The MoE, hybrid, VLM and
 enc-dec families come with later slices.
 """
 from __future__ import annotations
@@ -16,9 +17,10 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import FAMILY_DENSE, ModelConfig
+from repro_torch.configs.base import FAMILY_DENSE, FAMILY_SSM, ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -36,8 +38,19 @@ class AttnBlock(nn.Module):
                              dtype)
 
 
+class SSMBlock(nn.Module):
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype):
+        super().__init__()
+        self.ln1 = L.Norm(cfg.d_model, cfg.norm, dtype, gen.device)
+        self.mixer = S.SSDMixer(gen, cfg, dtype)
+
+
+_BLOCKS = {FAMILY_DENSE: AttnBlock, FAMILY_SSM: SSMBlock}
+
+
 class DecoderLM(nn.Module):
-    """Parameters of the dense decoder (the reference's param pytree)."""
+    """Parameters of the dense or SSM decoder (the reference's param
+    pytree)."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
@@ -46,13 +59,14 @@ class DecoderLM(nn.Module):
         self.final_norm = L.Norm(cfg.d_model, cfg.norm, dtype, gen.device)
         if not cfg.tie_embeddings:
             self.head = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
+        block = _BLOCKS[cfg.family]
         self.layers = nn.ModuleList(
-            AttnBlock(gen, cfg, dtype) for _ in range(cfg.num_layers))
+            block(gen, cfg, dtype) for _ in range(cfg.num_layers))
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> DecoderLM:
     """Seeded init on ``gen.device``, in ``cfg.param_dtype``."""
-    if cfg.family != FAMILY_DENSE:
+    if cfg.family not in _BLOCKS:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return DecoderLM(gen, cfg)
 
@@ -73,10 +87,23 @@ def _attn_block(p: AttnBlock, x, cfg: ModelConfig, *, positions, window=0,
     return x, new_kv
 
 
+def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None):
+    out, new_state = S.ssd_mixer(p.mixer, p.ln1(x), cfg, state=cache)
+    return x + out, new_state
+
+
 def _run_stack(cfg: ModelConfig, params: DecoderLM, x, *, positions,
                caches=None, idx=None):
-    """Returns (x, caches). With caches, each layer's K/V slice
-    ``caches[...][i]`` is updated in place."""
+    """Returns (x, caches). With caches, each layer's slice
+    ``caches[...][i]`` (K/V, or the SSM conv and ssm states) is updated in
+    place."""
+    if cfg.family == FAMILY_SSM:      # decode only: prefill has its own loop
+        for i, lp in enumerate(params.layers):
+            x, st = _ssm_block(lp, x, cfg, cache={
+                name: caches[name][i] for name in ("conv", "ssm")})
+            for name, t in st.items():
+                caches[name][i].copy_(t)
+        return x, caches
     for i, lp in enumerate(params.layers):
         cache = None if caches is None else (caches["k"][i], caches["v"][i])
         x, _ = _attn_block(lp, x, cfg, positions=positions, cache=cache,
@@ -93,6 +120,10 @@ def _head_table(cfg: ModelConfig, params: DecoderLM) -> nn.Embedding:
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Dict[str, Any]:
+    if cfg.family == FAMILY_SSM:
+        return {"layers": S.init_ssm_state(cfg, batch, cfg.num_layers,
+                                           _dtype(cfg), device),
+                "idx": torch.zeros((), dtype=torch.int32, device=device)}
     cache = A.init_kv_cache(cfg, batch, max_len, _dtype(cfg), cfg.num_layers,
                             device)
     return {"layers": {"k": cache["k"], "v": cache["v"]},
@@ -104,8 +135,12 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any],
     """Run the prompt, build the decode cache, return last-position logits.
 
     Runs in the params' dtype (the serve path prefills with the fp32 master
-    params, as the reference does); the cache is ``cfg.dtype``."""
+    params, as the reference does). The KV cache is ``cfg.dtype``; the SSM
+    states are those the prefill computed (conv in the params' dtype, ssm in
+    fp32), as the reference returns them."""
     x = params.embed(batch["tokens"])
+    if cfg.family == FAMILY_SSM:
+        return _ssm_prefill(cfg, params, x)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :]
     cache = init_cache(cfg, b, max_len, x.device)
@@ -120,11 +155,25 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any],
     return logits, cache
 
 
+def _ssm_prefill(cfg: ModelConfig, params: DecoderLM, x
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    b, s = x.shape[:2]
+    states = S.init_ssm_state(cfg, b, cfg.num_layers, x.dtype, x.device)
+    for i, lp in enumerate(params.layers):
+        x, st = _ssm_block(lp, x, cfg)
+        for name, t in st.items():
+            states[name][i] = t
+    cache = {"layers": states,
+             "idx": torch.tensor(s, dtype=torch.int32, device=x.device)}
+    x = params.final_norm(x)
+    return L.unembed(_head_table(cfg, params), x[:, -1:]), cache
+
+
 def decode_step(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
                 cache: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step. tokens: [B,1]. The cache's K/V are written in place;
-    the returned cache holds them with ``idx + 1``."""
+    """One decode step. tokens: [B,1]. The cache's K/V (or SSM states) are
+    written in place; the returned cache holds them with ``idx + 1``."""
     x = params.embed(tokens)
     idx = cache["idx"]
     positions = idx[None, None] * torch.ones((x.shape[0], 1),

@@ -37,6 +37,21 @@ def test_serve_phases_on_cpu(chip_smoke, capsys):
     assert [x["phase"] for x in lines] == ["serve", "serve_check"]
 
 
+def test_ssm_serve_phases_on_cpu(chip_smoke, capsys):
+    cfg = smoke_config("mamba2-1.3b")
+    serve = chip_smoke.phase_serve(cfg, "cpu", requests=3, prompt_len=21,
+                                   max_new=4, slots=2, max_len=40)
+    res = serve["result"]
+    assert res["finished"] == 3 and res["tokens_generated"] == 12
+    assert res["launches"] == {"ssd_scan": 0}
+    check = chip_smoke.phase_serve_check(serve["executor"], prompt_len=19,
+                                         steps=3)
+    assert [s["max_abs_err"] for s in check["steps"]] == [0.0] * 4
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(x["phase"], x["arch"]) for x in lines] == \
+        [("serve", "mamba2-1.3b"), ("serve_check", "mamba2-1.3b")]
+
+
 def test_claim_phase_on_cpu(chip_smoke):
     res = chip_smoke.phase_claim("cpu", tasks=3000, workers=16, rounds=2)
     assert res["equal_to_host_path"] and res["tasks_claimed"] == 16 * 2 * 5

@@ -41,13 +41,16 @@ def test_port_serves_with_jax_blocked():
         "import numpy as np\n"
         "from repro_torch.configs import smoke_config\n"
         "from repro_torch.runtime.executor import ServeExecutor\n"
-        "cfg = smoke_config('qwen2-0.5b')\n"
-        "ex = ServeExecutor(cfg, slots=2, max_len=32, device='cpu')\n"
-        "ex.submit(np.arange(24, dtype=np.int32).reshape(3, 8), max_new=3)\n"
-        "assert ex.drain() == 3\n"
-        "print('served', ex.wq.counts()['FINISHED'])\n")
+        "for arch in ('qwen2-0.5b', 'mamba2-1.3b'):\n"
+        "    cfg = smoke_config(arch)\n"
+        "    ex = ServeExecutor(cfg, slots=2, max_len=32, device='cpu')\n"
+        "    ex.submit(np.arange(24, dtype=np.int32).reshape(3, 8),\n"
+        "              max_new=3)\n"
+        "    assert ex.drain() == 3\n"
+        "    print('served', ex.wq.counts()['FINISHED'], arch)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "served 3" in out.stdout
+    assert "served 3 qwen2-0.5b" in out.stdout
+    assert "served 3 mamba2-1.3b" in out.stdout

@@ -19,6 +19,8 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # 
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
 from repro_torch.models.attention import _sdpa  # noqa: E402
@@ -115,6 +117,45 @@ def test_decode_kernel_equals_plain(dev, b, smax, hq, hkv, dh, kv_len,
     _assert_close(got, want)
 
 
+@pytest.mark.parametrize("bh,s,p,n,chunk,g,dtype,slow", [
+    (64, 1000, 64, 128, 256, 64, torch.float32, False),   # mamba2 prefill
+    (64, 1031, 64, 128, 256, 64, torch.float32, False),   # ragged
+    (64, 1000, 64, 128, 256, 64, torch.bfloat16, False),
+    (64, 4096, 64, 128, 256, 64, torch.float32, True),    # carry dominates
+    (4, 128, 64, 32, 32, 1, torch.float32, False),        # the reference's
+    (2, 256, 64, 128, 64, 1, torch.float32, False),       # kernel-test
+    (1, 64, 128, 16, 64, 1, torch.float32, False),        # shapes
+    (2, 300, 48, 256, 128, 2, torch.float32, True),       # N 256, P 48
+    (3, 10, 8, 16, 256, 3, torch.bfloat16, False),        # S < chunk
+])
+def test_ssd_scan_kernel_equals_plain(dev, bh, s, p, n, chunk, g, dtype,
+                                      slow):
+    """Against the sequential recurrence: max |got - ref| / max |ref| < 1e-4
+    (the reference's rule) for y and the final state; a bf16 y may also
+    differ by one bf16 step of its value."""
+    rng = np.random.default_rng(s + n)
+    x = _randn(rng, (bh, s, p), dtype, dev)
+    bm, cm = (_randn(rng, (bh // g, s, n), dtype, dev) * 0.5
+              for _ in range(2))
+    if slow:
+        dt = torch.full((bh, s), 0.01, device=dev).to(dtype)
+        a = -torch.linspace(0.1, 1.0, bh, device=dev)[:, None]
+    else:
+        dt = torch.nn.functional.softplus(_randn(rng, (bh, s), torch.float32,
+                                                 dev)).to(dtype)
+        a = -torch.linspace(1.0, 16.0, bh, device=dev)[:, None]
+    da = (dt.float() * a).to(dtype)
+    y, st = ssd_scan_fwd(x, bm, cm, dt, da, chunk=chunk, heads_per_bc=g)
+    ry, rst = ssd_scan_ref(x, bm, cm, dt, da, heads_per_bc=g)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 1e-4 * ry.float().abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ry.float().abs()
+    assert bool(((y.float() - ry.float()).abs() <= tol).all())
+    assert float((st - rst).abs().max()) <= 1e-4 * float(rst.abs().max())
+
+
 def test_dispatch_launches_kernels_or_raises(dev):
     q = torch.zeros((1, 4, 2, 64), device=dev)
     reset_launch_counts()
@@ -126,10 +167,15 @@ def test_dispatch_launches_kernels_or_raises(dev):
                   torch.zeros(5, dtype=torch.int32, device=dev),
                   num_workers=1, k=2)
     _sdpa(q[:, :1], q[:, :1], q[:, :1], causal=True)   # 1-token prefill
+    x = torch.zeros((4, 5, 8), device=dev)
+    kops.ssd_scan(x, x[:2, :, :4], x[:2, :, :4], x[..., 0], x[..., 0],
+                  heads_per_bc=2)
     assert launch_counts() == {"wq_claim": 1, "flash_attention": 2,
-                               "decode_attention": 1}
+                               "decode_attention": 1, "ssd_scan": 1}
     with pytest.raises(TypeError):
         kops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        kops.ssd_scan(x, x, x, x[..., 0].double(), x[..., 0])
 
 
 def test_device_claim_queue_on_card(dev):
@@ -155,6 +201,29 @@ def test_serve_on_card_matches_cpu(dev):
         outs["params"] = ex.params
         ids = ex.submit(prompts, max_new=6)
         assert ex.drain() == 3
+        outs[name] = [ex.wq.store.blobs[int(t)]["output"] for t in ids]
+    assert all(np.array_equal(a, b) for a, b in zip(outs["cuda"],
+                                                    outs["cpu"]))
+
+
+def test_ssm_serve_on_card_matches_cpu(dev):
+    """mamba2 smoke: the SSD kernel in every prefill, decode in plain torch;
+    greedy outputs on the card equal those of the same weights on the CPU,
+    with one ssd_scan launch per layer and request."""
+    cfg = smoke_config("mamba2-1.3b")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 70)).astype(np.int32)
+    outs = {}
+    for name in ("cuda", "cpu"):
+        ex = ServeExecutor(cfg, slots=2, max_len=96, device=name)
+        if name == "cpu":
+            ex.set_params(copy.deepcopy(outs["params"]).to("cpu"))
+        outs["params"] = ex.params
+        reset_launch_counts()
+        ids = ex.submit(prompts, max_new=6)
+        assert ex.drain() == 3
+        if name == "cuda":
+            assert launch_counts()["ssd_scan"] == 3 * cfg.num_layers
         outs[name] = [ex.wq.store.blobs[int(t)]["output"] for t in ids]
     assert all(np.array_equal(a, b) for a, b in zip(outs["cuda"],
                                                     outs["cpu"]))

@@ -1,6 +1,7 @@
 """The port's ServeExecutor: a twin of the reference's serve test on the CPU,
 greedy outputs identical to the reference executor (Pallas kernels in
-interpret mode) on converted params, and no silent move to the CPU."""
+interpret mode) on converted params, for the dense and the SSM family, and
+no silent move to the CPU."""
 import dataclasses
 
 import numpy as np
@@ -36,11 +37,12 @@ def test_serve_executor_continuous_batching():
     assert (ex.wq.store.col("out0")[:5] == 5.0).all()
 
 
-def test_greedy_outputs_identical_to_reference_executor():
-    jcfg = dataclasses.replace(jax_smoke_config("qwen2-0.5b"),
-                               attn_impl="pallas")
+def _greedy_parity(arch):
+    """Both executors on the same (converted) params and prompts: the same
+    greedy outputs, token for token, and the same store."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), attn_impl="pallas")
     ref = JaxServeExecutor(jcfg, slots=2, max_len=48)
-    cfg = smoke_config("qwen2-0.5b")
+    cfg = smoke_config(arch)
     ex = ServeExecutor(cfg, slots=2, max_len=48, device="cpu")
     ex.set_params(load_jax_params(ex.params,
                                   jax.tree.map(np.asarray, ref.params)))
@@ -53,6 +55,16 @@ def test_greedy_outputs_identical_to_reference_executor():
                               ex.wq.store.blobs[int(b)]["output"])
     assert np.array_equal(ref.wq.store.col("status"),
                           ex.wq.store.col("status"))
+
+
+def test_greedy_outputs_identical_to_reference_executor():
+    _greedy_parity("qwen2-0.5b")
+
+
+def test_ssm_greedy_outputs_identical_to_reference_executor():
+    """mamba2: the reference prefills with its chunked SSD form, the port
+    with the plain scan the CPU dispatch reaches."""
+    _greedy_parity("mamba2-1.3b")
 
 
 def test_max_len_cap_finishes_early():
@@ -74,4 +86,10 @@ def test_default_device_needs_a_card():
 def test_cli_serves_on_requested_device(capsys):
     serve.main(["--smoke", "--requests", "3", "--slots", "2", "--max-new",
                 "3", "--device", "cpu"])
+    assert "served 3 requests" in capsys.readouterr().out
+
+
+def test_cli_serves_mamba2_on_cpu(capsys):
+    serve.main(["--arch", "mamba2-1.3b", "--smoke", "--requests", "3",
+                "--slots", "2", "--max-new", "3", "--device", "cpu"])
     assert "served 3 requests" in capsys.readouterr().out

@@ -12,24 +12,39 @@ Phases, each printing JSON lines:
      loop; first qwen2-0.5b (24 layers, d 896, 14/2 heads, vocab 151936:
      the flash and decode attention kernels), then mamba2-1.3b (48 layers,
      d 2048, 64 heads of P 64, state 128, chunk 256, vocab 50280: the SSD
-     scan kernel in every layer's prefill). The launch counts are read from
-     each run alone; a short request's logits on the card are held against
-     the same model on the CPU (plain versions); one more request runs under
-     the profiler;
+     scan kernel in every layer's prefill), then recurrentgemma-9b (38
+     layers: 12 groups of (rec, rec, attn) and 2 tail rec layers, d 4096,
+     16/1 heads of 256, d_ff 12288, lru width 4096, window 2048, vocab
+     256000: the RG-LRU scan kernel in every rec layer's prefill, flash and
+     decode attention, with a ring of 2048 K/V slots, in the attention
+     layers). The launch counts are read from each run alone, and the peak
+     device memory of building the executor (the bf16 decode copy included)
+     and of the serve. For the first two, a short request's logits on the
+     card are held against the same model on the CPU (plain versions); for
+     recurrentgemma-9b that check runs on a 4-layer cut of it at full width
+     (one group and one tail layer) with a 2,100-token prompt, so that the
+     prefill's window bites and the ring wraps. One more request of each
+     model runs under the profiler;
   3. claim: a 936-worker work queue of 100,000 tasks claims through the
      ``wq_claim`` kernel, and must return the claim dicts of the host path;
   4. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (``ssd_scan`` also at a ragged length, in bf16,
-     and in a slow-decay case where the state carried across chunks
-     dominates the output), with its error, its time and its bound, then
-     one ``{"kernels": [...]}`` line.
+     the main path's shapes (``ssd_scan`` and ``rglru_scan`` also at a
+     ragged length, in bf16, and in a slow-decay case where the state
+     carried across chunks dominates the output; the attention kernels also
+     at recurrentgemma-9b's shapes, windowed), with its error, its time and
+     its bound (the RG-LRU scan's times with L2 flushed before each call, so
+     that they are held against the HBM bound they are compared with), then
+     one ``{"kernels": [...]}`` line: one entry per kernel and model that
+     launches it, with that serve run's launches.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises:
 the script then exits non-zero and does not print that line. Without a CUDA
 card it refuses to run.
 """
 from __future__ import annotations
 
-import copy
+import dataclasses
+import functools
+import gc
 import json
 import os
 import subprocess
@@ -49,10 +64,14 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # 
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
+from repro_torch.launch.steps import copy_params  # noqa: E402
+from repro_torch.models.transformer import hybrid_counts  # noqa: E402
 from repro_torch.runtime.executor import ServeExecutor  # noqa: E402
 
 # limit of an attention kernel against its plain version, per element: fp32
@@ -72,6 +91,13 @@ SERVE_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 # per element of y and of the final state; bf16 outputs may also differ by
 # one bf16 step of their value (2**-7 * |ref|), as for attention
 SSD_REL_TOL = 1e-4
+# the same rule for the RG-LRU scan against its plain version (the
+# sequential recurrence): 1e-4 of max |ref| per element of h, plus one bf16
+# step of the value for a bf16 h
+RGLRU_REL_TOL = 1e-4
+# recurrentgemma-9b's weights are 51.5 GB (34.3 GB fp32 master, 17.2 GB bf16
+# decode copy); a second fp32 copy during the cast would pass this
+HYBRID_MAX_PEAK_BYTES = 56e9
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12}
@@ -79,19 +105,42 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12}
 SRC = {"wq_claim": "src/repro_torch/csrc/wq_claim.cu",
        "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
        "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
-       "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
+       "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+       "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu"}
 REPLACES = {"wq_claim": "src/repro/kernels/wq_claim/kernel.py:32",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:25",
             "decode_attention": "src/repro/kernels/decode_attention/kernel.py:21",
-            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:23"}
+            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:23",
+            "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:20"}
+
+
+def layers_of(cfg, kind: str) -> int:
+    """How many layers of ``kind`` ("attn", "rec", "ssm") a config has; the
+    hybrid's are counted from its pattern (groups, then the tail's rec
+    layers)."""
+    if cfg.family == "hybrid":
+        ng, nt = hybrid_counts(cfg)
+        return ng * cfg.rglru.pattern.count(kind) + (nt if kind == "rec"
+                                                     else 0)
+    own = "ssm" if cfg.family == "ssm" else "attn"
+    return cfg.num_layers if kind == own else 0
+
+
 # kernels a serve run of each family launches (wq_claim runs in the claim
-# phase), as functions of (layers, requests, new tokens): one flash launch
-# per layer and prefill, one decode launch per layer and decode step (the
-# first token comes from the prefill), one SSD scan per layer and prefill
+# phase), as functions of (config, requests, new tokens): one flash launch
+# per attention layer and prefill, one decode launch per attention layer
+# and decode step (the first token comes from the prefill), one SSD or
+# RG-LRU scan per recurrent layer and prefill
+def _attention_launches(cfg, r, new):
+    n = layers_of(cfg, "attn")
+    return {"flash_attention": n * r, "decode_attention": n * r * (new - 1)}
+
+
 SERVE_LAUNCHES = {
-    "dense": {"flash_attention": lambda n_l, r, new: n_l * r,
-              "decode_attention": lambda n_l, r, new: n_l * r * (new - 1)},
-    "ssm": {"ssd_scan": lambda n_l, r, new: n_l * r},
+    "dense": _attention_launches,
+    "ssm": lambda cfg, r, new: {"ssd_scan": layers_of(cfg, "ssm") * r},
+    "hybrid": lambda cfg, r, new: {"rglru_scan": layers_of(cfg, "rec") * r,
+                                   **_attention_launches(cfg, r, new)},
 }
 
 
@@ -129,12 +178,19 @@ def phase_device() -> str:
 def phase_serve(cfg, device, *, requests=8, prompt_len=1000, max_new=32,
                 slots=4, max_len=4096, seed=0) -> dict:
     """Serve ``requests`` prompts through the store-driven executor; the
-    launch counts are those of this run alone."""
+    launch counts are those of this run alone. Peak device memory is read
+    twice: over building the executor (the params and their decode copy)
+    and over the serve."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.init()    # the allocator's stats exist once it is set up
+        torch.cuda.reset_peak_memory_stats(device)
     ex = ServeExecutor(cfg, slots=slots, max_len=max_len, seed=seed,
                        device=device)
+    init_peak = torch.cuda.max_memory_allocated(device) if on_card else None
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (requests, prompt_len)).astype(np.int32)
-    if ex.device.type == "cuda":
+    if on_card:
         torch.cuda.reset_peak_memory_stats(ex.device)
     sync(ex.device)
     reset_launch_counts()
@@ -144,8 +200,7 @@ def phase_serve(cfg, device, *, requests=8, prompt_len=1000, max_new=32,
     sync(ex.device)
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    want = {k: f(cfg.num_layers, requests, max_new)
-            for k, f in SERVE_LAUNCHES[cfg.family].items()}
+    want = SERVE_LAUNCHES[cfg.family](cfg, requests, max_new)
     outs = [ex.wq.store.blobs[int(t)]["output"] for t in ids]
     tokens = int(sum(len(o) for o in outs))
     check(finished == requests == ex.wq.counts()["FINISHED"],
@@ -162,12 +217,13 @@ def phase_serve(cfg, device, *, requests=8, prompt_len=1000, max_new=32,
            "prompt_len": prompt_len, "finished": finished,
            "tokens_generated": tokens, "wall_s": wall,
            "tokens_per_s": tokens / wall,
+           "init_peak_mem_bytes": init_peak,
            "peak_mem_bytes": (torch.cuda.max_memory_allocated(ex.device)
-                              if ex.device.type == "cuda" else None),
+                              if on_card else None),
            "launches": {k: counts[k] for k in want},
            "q4": steer["q4"]}
-    if ex.device.type == "cuda":
-        # exactly the path's kernels, and none of the other family's
+    if on_card:
+        # exactly the path's kernels, and none of the other families'
         for k, n in counts.items():
             if k != "wq_claim":
                 check(n == want.get(k, 0), f"{k} launches {n} != "
@@ -193,16 +249,21 @@ def _logits_run(model, params, dparams, tokens, steps, device, feed=None):
     return out, fed
 
 
+def cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module`` on the CPU, made parameter by parameter (no
+    second copy on the card)."""
+    return copy_params(module, lambda t: t.to("cpu", copy=True))
+
+
 def phase_serve_check(ex, *, prompt_len=37, steps=3, seed=1) -> dict:
     """The executor's model on its device against a CPU copy of the same
-    weights (plain attention), on the same tokens: prefill logits in the
+    weights (plain versions), on the same tokens: prefill logits in the
     master dtype, then ``steps`` decode steps in ``cfg.dtype``."""
     cfg = ex.cfg
     tokens = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, prompt_len)).astype(np.int32))
-    ref, fed = _logits_run(ex.model, copy.deepcopy(ex.params).to("cpu"),
-                           copy.deepcopy(ex.decode_params).to("cpu"), tokens,
-                           steps, "cpu")
+    ref, fed = _logits_run(ex.model, cpu_copy(ex.params),
+                           cpu_copy(ex.decode_params), tokens, steps, "cpu")
     got, _ = _logits_run(ex.model, ex.params, ex.decode_params, tokens,
                          steps, ex.device, feed=fed)
     errs = []
@@ -216,8 +277,27 @@ def phase_serve_check(ex, *, prompt_len=37, steps=3, seed=1) -> dict:
         check(bool(torch.isfinite(a).all()), f"non-finite logits at {i}")
         check(err <= tol, f"logits step {i}: {err} > {tol}")
     res = {"phase": "serve_check", "arch": cfg.name,
-           "prompt_len": prompt_len, "steps": errs}
+           "layers": cfg.num_layers, "prompt_len": prompt_len,
+           "steps": errs}
     emit(res)
+    return res
+
+
+def phase_hybrid_check(cfg, device, *, layers=4, prompt_len=2100, steps=3,
+                       seed=1) -> dict:
+    """The serve check on a cut of the hybrid at full width: ``layers``
+    layers (4: one (rec, rec, attn) group and one tail rec layer), a prompt
+    longer than the window, so that the flash kernel's window bites and the
+    prefill's K/V wrap in the ring, then ``steps`` decode steps."""
+    ex = ServeExecutor(dataclasses.replace(cfg, num_layers=layers), slots=1,
+                       max_len=prompt_len + steps + 1, seed=seed,
+                       device=device)
+    res = phase_serve_check(ex, prompt_len=prompt_len, steps=steps,
+                            seed=seed)
+    del ex
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
     return res
 
 
@@ -281,12 +361,38 @@ def phase_claim(device, *, tasks=100_000, workers=936, rounds=3) -> dict:
 
 
 # --------------------------------------------------------------- phase 4
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``iters`` back-to-back calls (CUDA
-    events; inputs stay in L2 where they fit)."""
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Read 256 MB, five times the H100's 50 MB L2, so that the next kernel
+    reads its inputs from HBM. A read, not a write: a written buffer would
+    leave 50 MB of dirty lines whose write-back lands on the next kernel."""
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(64 << 20, dtype=torch.float32,
+                                  device="cuda"))
+    _FLUSH[0].amax()
+
+
+def time_ms(fn, iters: int, warmup: int = 3, cold: bool = False) -> float:
+    """Mean milliseconds per call (CUDA events). By default over ``iters``
+    back-to-back calls, inputs staying in L2 where they fit; ``cold``: each
+    call after :func:`flush_l2`, timed by its own pair of events (the flush
+    keeps the card busy while the host launches the call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if cold:
+        pairs = []
+        for _ in range(iters):
+            flush_l2()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            pairs.append(ev)
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -305,19 +411,24 @@ def _device_kernel_us(prof) -> dict:
             and e.self_device_time_total > 0}
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, cold_kernel: str = ""):
     """Mean device time per call of the work ``fn`` puts on the card
     (torch.profiler, CUDA activity only): the kernels' own time, without
     the host's launch overhead that back-to-back event timing includes.
-    None when the profiler records no device activity."""
+    ``cold_kernel``: each call after :func:`flush_l2`, and only the kernels
+    whose name holds that string are summed. None when the profiler records
+    no device activity."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if cold_kernel:
+                flush_l2()
             fn()
         torch.cuda.synchronize()
-    total = sum(_device_kernel_us(prof).values())
+    total = sum(us for name, us in _device_kernel_us(prof).items()
+                if cold_kernel in name)
     return total / iters / 1e3 if total else None
 
 
@@ -365,60 +476,79 @@ def _attn_error(got, ref, what: str) -> dict:
             "tol": f"{FP32_TOL} + 2**-7 * |ref|" if bf16 else FP32_TOL}
 
 
-def _flash_case(dev, s, hq, hkv, dh, dtype, rng):
+def flash_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs a causal, optionally windowed, attention over S
+    positions computes: query i sees min(i + 1, window) keys."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _flash_case(dev, s, hq, hkv, dh, dtype, rng, window=0, arch=None):
     q, k, v = (torch.as_tensor(rng.standard_normal((1, s, h, dh)),
                                dtype=torch.float32, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
-    got = flash_attention_fwd(q, k, v, causal=True)
-    ref = flash_attention_ref(q, k, v, causal=True)
-    err = _attn_error(got, ref, f"flash {dtype}")
+    fa = functools.partial(flash_attention_fwd, q, k, v, causal=True,
+                           window=window)
+    got = fa()
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    err = _attn_error(got, ref, f"flash {dtype} S={s} window={window}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = {"kernel": "flash_attention", "shape_q": list(q.shape),
-           "shape_kv": list(k.shape), "dtype": str(dtype)[6:], **err,
-           "ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True),
-                         50),
-           "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
-                                                           causal=True), 10),
-           "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True), 50)}
-    row["device_ms"] = device_ms(lambda: flash_attention_fwd(q, k, v,
-                                                             causal=True))
-    row["library_device_ms"] = device_ms(
-        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    pairs = s * (s + 1) / 2                  # causal (query, key) pairs
+    if window and window < s:      # the same function: the window as a mask
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib = functools.partial(sdpa, qt, kt, vt, attn_mask=mask,
+                                enable_gqa=True)
+    else:
+        lib = functools.partial(sdpa, qt, kt, vt, is_causal=True,
+                                enable_gqa=True)
+    row = {"kernel": "flash_attention", "arch": arch,
+           "shape_q": list(q.shape), "shape_kv": list(k.shape),
+           "window": window, "dtype": str(dtype)[6:], **err,
+           "ms": time_ms(fa, 50),
+           "plain_ms": time_ms(lambda: flash_attention_ref(
+               q, k, v, causal=True, window=window), 10),
+           "library_ms": time_ms(lib, 50)}
+    row["device_ms"] = device_ms(fa)
+    row["library_device_ms"] = device_ms(lib)
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    row.update(_bound(nbytes, 4.0 * pairs * dh * hq, dtype))
+    row.update(_bound(nbytes, 4.0 * flash_pairs(s, window) * dh * hq, dtype))
     return row
 
 
-def _decode_case(dev, smax, hq, hkv, dh, kv_len, dtype, rng):
+def _decode_case(dev, smax, hq, hkv, dh, kv_len, dtype, rng, window=0,
+                 arch=None):
     q = torch.as_tensor(rng.standard_normal((1, 1, hq, dh)),
                         dtype=torch.float32, device=dev).to(dtype)
     k, v = (torch.as_tensor(rng.standard_normal((1, smax, hkv, dh)),
                             dtype=torch.float32, device=dev).to(dtype)
             for _ in range(2))
     kvl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-    got = decode_attention_fwd(q, k, v, kvl)
-    ref = decode_attention_ref(q, k, v, kvl)
-    err = _attn_error(got, ref, f"decode {dtype} kv_len={kv_len}")
+    dec = functools.partial(decode_attention_fwd, q, k, v, kvl, window)
+    got = dec()
+    ref = decode_attention_ref(q, k, v, kvl, window)
+    err = _attn_error(got, ref, f"decode {dtype} kv_len={kv_len} "
+                      f"window={window}")
+    lo = max(0, kv_len - window) if window else 0      # first visible key
     qt = q.transpose(1, 2).contiguous()
-    kt, vt = (t[:, :kv_len].transpose(1, 2).contiguous() for t in (k, v))
+    kt, vt = (t[:, lo:kv_len].transpose(1, 2).contiguous() for t in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = {"kernel": "decode_attention", "shape_q": list(q.shape),
-           "shape_cache": list(k.shape), "kv_len": kv_len,
-           "dtype": str(dtype)[6:], **err,
-           "ms": time_ms(lambda: decode_attention_fwd(q, k, v, kvl), 200),
-           "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, kvl),
-                               50),
+    row = {"kernel": "decode_attention", "arch": arch,
+           "shape_q": list(q.shape), "shape_cache": list(k.shape),
+           "kv_len": kv_len, "window": window, "dtype": str(dtype)[6:],
+           **err, "ms": time_ms(dec, 200),
+           "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, kvl,
+                                                            window), 50),
            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True),
                                  200)}
-    row["device_ms"] = device_ms(lambda: decode_attention_fwd(q, k, v, kvl))
+    row["device_ms"] = device_ms(dec)
     row["library_device_ms"] = device_ms(lambda: sdpa(qt, kt, vt,
                                                       enable_gqa=True))
-    # K and V below kv_len read once, q read and out written once
-    nbytes = q.element_size() * (2 * kv_len * hkv * dh + 2 * q.numel()) + 4
-    row.update(_bound(nbytes, 4.0 * kv_len * hq * dh, dtype))
+    # the visible K and V read once, q read and out written once
+    live = kv_len - lo
+    nbytes = q.element_size() * (2 * live * hkv * dh + 2 * q.numel()) + 4
+    row.update(_bound(nbytes, 4.0 * live * hq * dh, dtype))
     return row
 
 
@@ -506,11 +636,76 @@ def _ssd_case(dev, case, b, h, s, p, n, chunk, dtype, slow, rng):
     return row
 
 
-def phase_kernels(cfg, scfg, device, launches: dict) -> dict:
+def rglru_inputs(rng, b, s, c, *, slow=False, dtype=torch.float32,
+                 device="cpu"):
+    """Inputs of the RG-LRU scan as the model makes them, with numpy: a =
+    base**r with base over linspace(0.9, 0.999) across the channels (the
+    Lambda init) and r = sigmoid(N(0, 1)); u = sqrt(1 - a^2) i x with i =
+    sigmoid(N(0, 1)), x ~ N(0, 1). The slow-decay case: a = 1 - 1e-3 *
+    exp(0.1 N(0, 1)), about 0.999, so h remembers ~1000 steps and the part
+    carried across the kernel's time chunks dominates it."""
+    shape = (b, s, c)
+    if slow:
+        a = 1.0 - 1e-3 * np.exp(0.1 * rng.standard_normal(shape))
+    else:
+        r = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
+        a = np.linspace(0.9, 0.999, c) ** r
+    gate = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
+    u = np.sqrt(1.0 - a * a) * gate * rng.standard_normal(shape)
+    return [torch.as_tensor(v, dtype=torch.float32, device=device).to(dtype)
+            for v in (a, u)]
+
+
+def rglru_error(got, ref) -> dict:
+    """The RG-LRU scan's error against its plain version, and its largest
+    ratio to the per-element limit (``RGLRU_REL_TOL`` of the largest |ref|,
+    plus one bf16 step of the value for a bf16 h)."""
+    tol = RGLRU_REL_TOL * float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        tol = tol + BF16_STEP * ref.float().abs()
+    diff = (got.float() - ref.float()).abs()
+    return {"max_abs_err": float(diff.max()),
+            "rel_err": float(diff.max() / ref.float().abs().max()),
+            "err_over_tol": float((diff / tol).max())}
+
+
+def rglru_ops_bytes(b, s, c, dtype):
+    """One FMA (2 operations) per element; a and u read and h written
+    once."""
+    n = b * s * c
+    elt = torch.tensor([], dtype=dtype).element_size()
+    return 2.0 * n, 3.0 * elt * n
+
+
+def _rglru_case(dev, case, b, s, c, dtype, slow, rng):
+    a, u = rglru_inputs(rng, b, s, c, slow=slow, dtype=dtype, device=dev)
+    got = rglru_scan_fwd(a, u)
+    ref = rglru_scan_ref(a, u)
+    err = rglru_error(got, ref)
+    check(got.dtype == dtype and err["err_over_tol"] <= 1.0,
+          f"rglru_scan {case}: {err}")
+    row = {"kernel": "rglru_scan", "case": case, "batch": b, "seq": s,
+           "channels": c, "dtype": str(dtype)[6:], **err,
+           "tol": f"{RGLRU_REL_TOL} * max|ref|"
+           + (" + 2**-7 * |ref|" if dtype == torch.bfloat16 else ""),
+           "timing": "L2 flushed before each call",
+           "ms": time_ms(lambda: rglru_scan_fwd(a, u), 100, cold=True),
+           "plain_ms": time_ms(lambda: rglru_scan_ref(a, u), 3, 1),
+           "library_ms": None}
+    row["device_ms"] = device_ms(lambda: rglru_scan_fwd(a, u),
+                                 cold_kernel="rglru_fwd")
+    ops, nbytes = rglru_ops_bytes(b, s, c, dtype)
+    row.update(_bound(nbytes, ops, dtype))
+    return row
+
+
+def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes
-    (``cfg`` the dense model, ``scfg`` the SSM model); returns the
-    ``{"kernels": [...]}`` record (one entry per kernel, at the shape named
-    in ``main_shape``)."""
+    (``cfg`` the dense model, ``scfg`` the SSM model, ``hcfg`` the hybrid;
+    ``launches`` by arch, the claim phase's under None); returns the
+    ``{"kernels": [...]}`` record: one entry per kernel and model that
+    launches it, with that run's launches and the time and bound of the
+    shape it gives the kernel."""
     dev = torch.device(device)
     rng = np.random.default_rng(0)
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -520,13 +715,28 @@ def phase_kernels(cfg, scfg, device, launches: dict) -> dict:
             for k in (1, 4):
                 rows.append(_claim_case(dev, n, w, k, rng))
     for dtype in (torch.float32, torch.bfloat16):
-        rows.append(_flash_case(dev, 1000, hq, hkv, dh, dtype, rng))
+        rows.append(_flash_case(dev, 1000, hq, hkv, dh, dtype, rng,
+                                arch=cfg.name))
     for kv_len in (1, 1000, 1031, 4096):
         rows.append(_decode_case(dev, 4096, hq, hkv, dh, kv_len,
-                                 torch.bfloat16, rng))
+                                 torch.bfloat16, rng, arch=cfg.name))
     # the same ragged length in fp32, held to the fp32 limit
     rows.append(_decode_case(dev, 4096, hq, hkv, dh, 1031, torch.float32,
-                             rng))
+                             rng, arch=cfg.name))
+    # recurrentgemma-9b: fp32 prefill at dh 256, 16 query heads over 1 KV
+    # head, window 2048 (not biting at S 1000, biting at S 4096); bf16
+    # decode against the ring of 2048 slots, and a linear cache windowed
+    hhq, hhkv, hdh = hcfg.num_heads, hcfg.num_kv_heads, \
+        hcfg.resolved_head_dim
+    win = hcfg.rglru.window
+    for s in (1000, 4096):
+        rows.append(_flash_case(dev, s, hhq, hhkv, hdh, torch.float32, rng,
+                                window=win, arch=hcfg.name))
+    for kv_len in (1001, win):
+        rows.append(_decode_case(dev, win, hhq, hhkv, hdh, kv_len,
+                                 torch.bfloat16, rng, arch=hcfg.name))
+    rows.append(_decode_case(dev, 4096, hhq, hhkv, hdh, 3000, torch.bfloat16,
+                             rng, window=win, arch=hcfg.name))
     ss = scfg.ssm
     nh, p, n = scfg.num_heads, ss.head_dim, ss.state_dim
     for case, s, dtype, slow in (("main", 1000, torch.float32, False),
@@ -535,20 +745,33 @@ def phase_kernels(cfg, scfg, device, launches: dict) -> dict:
                                  ("slow_decay", 4096, torch.float32, True)):
         rows.append(_ssd_case(dev, case, 1, nh, s, p, n, ss.chunk, dtype,
                               slow, rng))
+    lw = hcfg.rglru.lru_width or hcfg.d_model
+    for case, s, dtype, slow in (("main", 1000, torch.float32, False),
+                                 ("ragged", 1031, torch.float32, False),
+                                 ("bf16", 1000, torch.bfloat16, False),
+                                 ("slow_decay", 4096, torch.float32, True)):
+        rows.append(_rglru_case(dev, case, 1, s, lw, dtype, slow, rng))
     for r in rows:
         emit(r)
-    main_shape = {  # the shape each kernel sees on the main path
-        "wq_claim": lambda r: r["n"] == 100_000 and r["workers"] == 936
-        and r["k"] == 1,
-        "flash_attention": lambda r: r["dtype"] == "float32",
-        "decode_attention": lambda r: r["kv_len"] == 1000
-        and r["dtype"] == "bfloat16",
-        "ssd_scan": lambda r: r["case"] == "main"}
+    main_shape = [  # (kernel, arch, the row of the shape it sees there)
+        ("wq_claim", None, lambda r: r["n"] == 100_000
+         and r["workers"] == 936 and r["k"] == 1),
+        ("flash_attention", cfg.name, lambda r: r["arch"] == cfg.name
+         and r["dtype"] == "float32"),
+        ("flash_attention", hcfg.name, lambda r: r["arch"] == hcfg.name
+         and r["shape_q"][1] == 1000),
+        ("decode_attention", cfg.name, lambda r: r["arch"] == cfg.name
+         and r["kv_len"] == 1000 and r["dtype"] == "bfloat16"),
+        ("decode_attention", hcfg.name, lambda r: r["arch"] == hcfg.name
+         and r["kv_len"] == 1001 and not r["window"]),
+        ("ssd_scan", scfg.name, lambda r: r["case"] == "main"),
+        ("rglru_scan", hcfg.name, lambda r: r["case"] == "main")]
     out = []
-    for name, pick in main_shape.items():
+    for name, arch, pick in main_shape:
         r = next(r for r in rows if r["kernel"] == name and pick(r))
-        out.append({"name": name, "route": "cuda", "source": SRC[name],
-                    "replaces": REPLACES[name], "launches": launches[name],
+        out.append({"name": name, "arch": arch, "route": "cuda",
+                    "source": SRC[name], "replaces": REPLACES[name],
+                    "launches": launches[arch][name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
@@ -563,17 +786,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = phase_device()
-    cfg, scfg = get_config("qwen2-0.5b"), get_config("mamba2-1.3b")
+    cfg, scfg, hcfg = (get_config(a) for a in
+                       ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b"))
     launches = {}
-    for c in (cfg, scfg):
+    for c in (cfg, scfg, hcfg):
         serve = phase_serve(c, dev)
-        launches.update(serve["result"]["launches"])
-        phase_serve_check(serve["executor"])
+        res = serve["result"]
+        launches[c.name] = res["launches"]
+        if c is hcfg:    # too large for a CPU copy: checked cut, below
+            for key in ("init_peak_mem_bytes", "peak_mem_bytes"):
+                check(res[key] < HYBRID_MAX_PEAK_BYTES,
+                      f"{c.name} {key} {res[key]} >= "
+                      f"{HYBRID_MAX_PEAK_BYTES}")
+        else:
+            phase_serve_check(serve["executor"])
         phase_serve_profile(serve["executor"])
-        del serve        # free one model before the next is built
+        del serve, res   # free one model before the next is built
+        gc.collect()
         torch.cuda.empty_cache()
-    launches.update(phase_claim(dev)["launches"])
-    kernels = phase_kernels(cfg, scfg, dev, launches)
+    phase_hybrid_check(hcfg, dev)
+    launches[None] = phase_claim(dev)["launches"]
+    kernels = phase_kernels(cfg, scfg, hcfg, dev, launches)
     print(smi, flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

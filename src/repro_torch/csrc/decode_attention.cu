@@ -5,17 +5,23 @@
 // (_dec_kernel / decode_attention_fwd). Same function: q [B,1,Hq,dh]
 // against k/v [B,Smax,Hkv,dh], positions >= kv_len masked, query head h
 // reading KV head h / (Hq/Hkv), scale = true dh^-0.5. kv_len is one int32
-// read from device memory, so the caller needs no host sync.
+// read from device memory, so the caller needs no host sync. With a window
+// W > 0, positions below kv_len - W are masked too (the model's sliding-
+// window attention: the query at position kv_len - 1 sees the last W keys),
+// and the splits cover only [max(0, kv_len - W), kv_len). The TPU kernel
+// takes no window (its dispatcher drops it); this follows the reference's
+// oracle, sdpa_ref.
 //
 // What differs from the TPU design: the TPU kernel gives each (batch, query
 // head) a sequential walk over the cache's blocks. At batch 1 that is
 // B*Hq = 14 programs, which on a GPU would fill 14 of 132 SMs, and each of
 // the 7 query heads sharing a KV head would read it again. Here
 //   (1) dec_split: grid (nsplit, B*Hkv), 4 warps. A block serves every query
-//       head of one KV head (K/V read once) over one chunk of ceil(kv_len /
-//       nsplit) positions; warps take positions round-robin, each lane holds
-//       dh/32 columns of q, K, V and the accumulators, a score is a warp
-//       all-reduce, and the online softmax (m, l, acc) stays in registers.
+//       head of one KV head (K/V read once) over one chunk of ceil(live /
+//       nsplit) positions (live: those below kv_len that the window keeps);
+//       warps take positions round-robin, each lane holds dh/32 columns
+//       of q, K, V and the accumulators, a score is a warp all-reduce, and
+//       the online softmax (m, l, acc) stays in registers.
 //       The 4 warps merge through shared memory and the block writes one
 //       partial (m, l, acc) per query head. Chunks past kv_len write empty
 //       partials and read nothing.
@@ -39,7 +45,7 @@ dec_split(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ kv_len_ptr,
           float* __restrict__ part_m, float* __restrict__ part_l,
           float* __restrict__ part_acc, int smax, int hq, int hkv, int dh,
-          int nsplit, float scale) {
+          int nsplit, int window, float scale) {
   constexpr int EL = HD / 32;   // columns per lane: d = lane * EL + e
   __shared__ float sm_m[kWarps][kGMax];
   __shared__ float sm_l[kWarps][kGMax];
@@ -53,8 +59,9 @@ dec_split(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
 
   const int kv_len = max(0, min(*kv_len_ptr, smax));
-  const int chunk = (kv_len + nsplit - 1) / nsplit;
-  const int start = split * chunk;
+  const int lo = window > 0 ? max(0, kv_len - window) : 0;
+  const int chunk = (kv_len - lo + nsplit - 1) / nsplit;
+  const int start = lo + split * chunk;
   const int end = min(start + chunk, kv_len);
 
   const size_t kv_row = (size_t)hkv * dh;   // stride between positions
@@ -168,14 +175,14 @@ dec_merge(const float* __restrict__ part_m, const float* __restrict__ part_l,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
            void* o, float* scratch, int b, int smax, int hq, int hkv, int dh,
-           int nsplit, float scale, cudaStream_t s) {
+           int nsplit, int window, float scale, cudaStream_t s) {
   float* pm = scratch;
   float* pl = pm + (size_t)b * hq * nsplit;
   float* pa = pl + (size_t)b * hq * nsplit;
   dim3 grid(nsplit, b * hkv);
   dec_split<T, HD><<<grid, kWarps * 32, 0, s>>>(
       (const T*)q, (const T*)k, (const T*)v, kv_len, pm, pl, pa, smax, hq,
-      hkv, dh, nsplit, scale);
+      hkv, dh, nsplit, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dec_merge<T, HD><<<b * hq, HD, 0, s>>>(pm, pl, pa, (T*)o, dh, nsplit);
@@ -185,16 +192,16 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, const int* kv_len,
               void* o, float* scratch, int b, int smax, int hq, int hkv,
-              int dh, int nsplit, float scale, cudaStream_t s) {
+              int dh, int nsplit, int window, float scale, cudaStream_t s) {
   if (dh <= 64)
     return launch<T, 64>(q, k, v, kv_len, o, scratch, b, smax, hq, hkv, dh,
-                         nsplit, scale, s);
+                         nsplit, window, scale, s);
   if (dh <= 128)
     return launch<T, 128>(q, k, v, kv_len, o, scratch, b, smax, hq, hkv, dh,
-                          nsplit, scale, s);
+                          nsplit, window, scale, s);
   if (dh <= 256)
     return launch<T, 256>(q, k, v, kv_len, o, scratch, b, smax, hq, hkv, dh,
-                          nsplit, scale, s);
+                          nsplit, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -211,17 +218,17 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const int* kv_len,
                                        void* o, float* scratch, int b,
                                        int smax, int hq, int hkv, int dh,
-                                       int nsplit, float scale, int dtype,
-                                       void* stream) {
+                                       int nsplit, int window, float scale,
+                                       int dtype, void* stream) {
   if (b <= 0 || hq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || dh <= 0 || nsplit <= 0)
+  if (hkv <= 0 || hq % hkv != 0 || dh <= 0 || nsplit <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == repro::kFloat32)
     return launch_dh<float>(q, k, v, kv_len, o, scratch, b, smax, hq, hkv,
-                            dh, nsplit, scale, s);
+                            dh, nsplit, window, scale, s);
   if (dtype == repro::kBFloat16)
     return launch_dh<__nv_bfloat16>(q, k, v, kv_len, o, scratch, b, smax, hq,
-                                    hkv, dh, nsplit, scale, s);
+                                    hkv, dh, nsplit, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

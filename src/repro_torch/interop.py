@@ -1,17 +1,23 @@
 """Carry parameters across from the reference package.
 
 The reference keeps the decoder's params as a pytree of arrays whose
-per-layer leaves are stacked on a leading [L] axis; its checkpointer
-flattens the tree to ``/``-joined keys (``embed/table``,
-``final_norm/scale``, ``layers/ln1/scale``; dense: ``layers/attn/q/w``,
-``layers/attn/q/b``, ``layers/mlp/up/w``, ...; SSM: ``layers/mixer/in_proj/w``,
-``layers/mixer/conv_w``, ``layers/mixer/A_log``, ``layers/mixer/norm/scale``,
-...). :func:`params_from_jax` takes that tree, nested or flat, as numpy
-arrays and returns a state dict of the port's
-:class:`~repro_torch.models.transformer.DecoderLM`: the layer axis is
-unstacked and the ``[in, out]`` weights (the ``w`` leaves) are transposed
-to ``nn.Linear``'s ``[out, in]``; every other leaf, the conv's ``[W, C]``
-``conv_w`` included, is copied as it is. Nothing here imports JAX.
+per-layer leaves are stacked on a leading axis; its checkpointer flattens
+the tree to ``/``-joined keys (``embed/table``, ``final_norm/scale``;
+dense: ``layers/ln1/scale``, ``layers/attn/q/w``, ``layers/attn/q/b``,
+``layers/mlp/up/w``, ...; SSM: ``layers/mixer/in_proj/w``,
+``layers/mixer/conv_w``, ``layers/mixer/A_log``, ...; hybrid:
+``groups/pos0/mixer/in/w``, ``groups/pos0/mixer/wa/w``,
+``groups/pos0/mixer/lam``, ``groups/pos2/attn/q/w``, ..., stacked over the
+groups, and ``tail/mixer/...`` stacked over the tail layers).
+:func:`params_from_jax` takes that tree, nested or flat, as numpy arrays
+and returns a state dict of the port's
+:class:`~repro_torch.models.transformer.DecoderLM`: the stacked axis of
+``layers``, ``groups`` and ``tail`` is unstacked (``layers.{i}``,
+``groups.{g}.pos{i}``, ``tail.{j}``) and the dense ``[in, out]`` weights
+(the 2-D ``w`` leaves) are transposed to ``nn.Linear``'s ``[out, in]``;
+every other leaf is copied as it is: the block-diagonal gates' ``w``
+``[nb, c, c]``, the convs' ``[W, C]`` ``conv_w``, ``lam``. Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -43,6 +49,9 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+_STACKED = ("layers", "groups", "tail")   # leaves with a leading layer axis
+
+
 def _leaf_name(parts) -> str:
     *mods, leaf = parts
     name = {"w": "weight", "b": "bias", "table": "weight"}.get(leaf, leaf)
@@ -50,19 +59,20 @@ def _leaf_name(parts) -> str:
 
 
 def params_from_jax(tree_or_flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict of the dense or SSM decoder from the reference's param
-    tree."""
+    """State dict of the dense, SSM or hybrid decoder from the reference's
+    param tree."""
     flat = flatten(tree_or_flat)
     sd: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         parts = key.split("/")
-        if parts[0] == "layers":
+        if parts[0] in _STACKED:
             stacked = _tensor(arr)
             for i in range(stacked.shape[0]):
                 t = stacked[i]
-                if parts[-1] == "w":
+                if parts[-1] == "w" and t.dim() == 2:
                     t = t.T
-                sd[f"layers.{i}." + _leaf_name(parts[1:])] = t.contiguous()
+                sd[f"{parts[0]}.{i}." + _leaf_name(parts[1:])] = \
+                    t.contiguous()
         else:
             sd[_leaf_name(parts)] = _tensor(arr)
     return sd

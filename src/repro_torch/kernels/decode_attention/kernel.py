@@ -24,10 +24,12 @@ def num_splits(device: torch.device, batch: int, hkv: int, smax: int) -> int:
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_len: torch.Tensor) -> torch.Tensor:
+                         kv_len: torch.Tensor, window: int = 0
+                         ) -> torch.Tensor:
     """q: [B,1,Hq,dh]; k/v: [B,Smax,Hkv,dh]; kv_len: int32 [1] on the same
     card (read by the kernel, so no host sync). Contiguous, one dtype
-    (fp32 or bf16), dh <= 256."""
+    (fp32 or bf16), dh <= 256. ``window > 0`` also masks the positions below
+    ``kv_len - window``."""
     library.require_cuda("decode_attention", q, k, v, kv_len)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in library.DTYPE_CODES:
         raise TypeError(f"decode_attention: q/k/v must share dtype float32 or "
@@ -39,7 +41,8 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "[B,Smax,Hkv,dh]")
     b, _, hq, dh = q.shape
     smax, hkv = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != dh or hq % hkv or dh > 256:
+    if k.shape[0] != b or k.shape[3] != dh or hq % hkv or dh > 256 \
+            or window < 0:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)}")
     scale = dh ** -0.5
@@ -53,7 +56,7 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         library.launch("decode_attention_launch", q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
                        scratch.data_ptr(), b, smax, hq, hkv, dh, nsplit,
-                       float(scale), library.DTYPE_CODES[q.dtype],
+                       int(window), float(scale), library.DTYPE_CODES[q.dtype],
                        library.stream_of(q))
     decode_attention_fwd.launches += 1
     return out

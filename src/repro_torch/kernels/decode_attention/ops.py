@@ -11,12 +11,15 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
-def decode_attention(q, k, v, *, kv_len):
+def decode_attention(q, k, v, *, kv_len, window: int = 0):
     """q: [B,1,Hq,DH]; k/v: [B,Smax,Hkv,DH]; kv_len: int32 tensor of one
-    element."""
+    element. ``window > 0`` masks the positions below ``kv_len - window``
+    (the reference's Pallas dispatcher drops the window; its oracle,
+    ``sdpa_ref``, applies it, and so does the port)."""
     if q.device.type == "cuda":
         return decode_attention_fwd(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), kv_len.reshape(1))
+                                    v.contiguous(), kv_len.reshape(1),
+                                    window)
     if q.device.type != "cpu":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return decode_attention_ref(q, k, v, kv_len)
+    return decode_attention_ref(q, k, v, kv_len, window)

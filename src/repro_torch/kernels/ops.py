@@ -10,5 +10,6 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F401
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: F401
 from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: F401
 from repro_torch.kernels.wq_claim.ops import wq_claim, wq_claim_columns  # noqa: F401

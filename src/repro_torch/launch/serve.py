@@ -6,9 +6,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --smoke --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-9b --requests 8
+
 ``--device`` defaults to ``cuda``: the model's kernels (attention for the
-dense family, the SSD scan for mamba2) then run as hand-written CUDA
-kernels, and the command fails when no card is present.
+dense family, the SSD scan for mamba2, the RG-LRU scan and attention for
+recurrentgemma) then run as hand-written CUDA kernels, and the command
+fails when no card is present. recurrentgemma-9b at full width needs about
+52 GB of device memory (fp32 master params and their bf16 decode copy).
 """
 from __future__ import annotations
 

@@ -1,12 +1,15 @@
-"""GQA attention with a KV cache: causal / sliding-window, no-cache and
-linear-cache branches (the ring-buffer branch comes with the hybrid slice).
+"""GQA attention with a KV cache: causal / sliding-window, with the
+no-cache, linear-cache and ring-buffer branches of the reference.
 
 The compute core (:func:`_sdpa`) chooses by the tensors' device. A CUDA
 tensor always goes to a hand-written kernel: a 1-token query against the
-cache to the decode kernel, a prefill from position 0 with no cache tail
-(of any length, one token included) to the flash kernel, and any other
-shape raises. A CPU tensor goes to :func:`sdpa_ref`.
-``cfg.attn_impl`` does not select the attention path in this port.
+cache to the decode kernel (with the window, if any), a prefill from
+position 0 with no cache tail (of any length, one token included) to the
+flash kernel, and any other shape raises. A CPU tensor goes to
+:func:`sdpa_ref`. The ring-buffer branch (sliding-window decode against a
+cache of exactly ``window`` slots) goes to the decode kernel's dispatcher on
+both devices (see :func:`attention`). ``cfg.attn_impl`` does not select the
+attention path in this port.
 """
 from __future__ import annotations
 
@@ -80,8 +83,9 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None):
     if q.device.type == "cuda":
-        if q.shape[1] == 1 and kv_len is not None and not window:   # decode
-            return kops.decode_attention(q, k, v, kv_len=kv_len)
+        if q.shape[1] == 1 and kv_len is not None:                  # decode
+            return kops.decode_attention(q, k, v, kv_len=kv_len,
+                                         window=window)
         if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
             return kops.flash_attention(q, k, v, causal=causal, window=window)
         raise NotImplementedError(
@@ -115,7 +119,9 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     Decode: cache_kv=(k,v) [B,Smax,Hkv,Dh] and cache_idx = #valid entries
     (an int32 scalar tensor); x is the new token(s). The new K/V are written
     into the cache tensors IN PLACE (the reference returns updated copies),
-    and the same tensors are returned.
+    and the same tensors are returned. With a window and a cache of exactly
+    ``window`` slots, the cache is a ring: slot s holds the newest position
+    p with p % window == s, and x is one token.
     """
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     q = _split_heads(p.q(x), hq)
@@ -129,8 +135,18 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         out = _sdpa(q, k, v, causal=causal, window=window)
         new_kv = (k, v)
     elif window and cache_kv[0].shape[1] == window:
-        raise NotImplementedError(
-            "the ring-buffer (sliding-window) cache comes with the hybrid slice")
+        # rotating ring-buffer cache for sliding-window decode. The
+        # reference masks the unwritten slots, (t >= W) | (slot <= t):
+        # exactly the first min(t+1, W) slots, and softmax does not depend
+        # on the keys' order, so the decode kernel computes it with kv_len =
+        # min(t+1, W); slot and kv_len stay on the device (no host sync)
+        ck, cv = cache_kv
+        slot = torch.remainder(cache_idx.long(), window).reshape(1)
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        kv_len = torch.clamp(cache_idx + 1, max=window)
+        out = kops.decode_attention(q, ck, cv, kv_len=kv_len)
+        new_kv = (ck, cv)
     else:
         ck, cv = cache_kv
         pos = cache_idx.long() + torch.arange(x.shape[1], device=x.device)

@@ -1,8 +1,8 @@
 """Model registry: uniform build API per config.
 
 ``build_model(cfg)`` returns a ``Model`` bundle of functions, as the
-reference's registry does; the executor invokes them per task. Only the
-dense and SSM families are ported; the others raise, naming the ROADMAP
+reference's registry does; the executor invokes them per task. The dense,
+SSM and hybrid families are ported; the others raise, naming the ROADMAP
 item that brings them.
 """
 from __future__ import annotations
@@ -11,14 +11,11 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import (FAMILY_DENSE, FAMILY_ENCDEC,
-                                      FAMILY_HYBRID, FAMILY_MOE, FAMILY_SSM,
+from repro_torch.configs.base import (FAMILY_ENCDEC, FAMILY_MOE,
                                       FAMILY_VLM, ModelConfig)
 from repro_torch.models import transformer as T
 
 _WAITING = {
-    FAMILY_HYBRID: "ROADMAP Queue 1, the hybrid family with the rglru_scan "
-                   "kernel and the ring-buffer cache",
     FAMILY_MOE: "ROADMAP Queue 1, the MoE / VLM / enc-dec families",
     FAMILY_VLM: "ROADMAP Queue 1, the MoE / VLM / enc-dec families",
     FAMILY_ENCDEC: "ROADMAP Queue 1, the MoE / VLM / enc-dec families",
@@ -33,7 +30,7 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in (FAMILY_DENSE, FAMILY_SSM):
+    if cfg.family not in T.PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"{_WAITING.get(cfg.family, 'not planned')}")

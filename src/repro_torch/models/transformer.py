@@ -1,14 +1,31 @@
-"""Decoder-only LM for the dense and SSM families: init, prefill with cache
-build, and one decode step.
+"""Decoder-only LM for the dense, SSM and hybrid families: init, prefill
+with cache build, and one decode step.
 
-PyTorch counterpart of the dense and SSM paths of
+PyTorch counterpart of the dense, SSM and hybrid paths of
 ``repro/models/transformer.py``. The reference stacks per-layer leaves on a
 leading [L] axis and runs ``lax.scan`` over them; here the layers are an
 ``nn.ModuleList`` and the scan is a loop. The caches keep the reference's
-layouts on the model's device: the dense KV cache ``[L,B,Smax,Hkv,Dh]``, the
-SSM state ``{"conv": [L,B,W-1,Cin], "ssm": [L,B,H,P,N]}``, each with an
-int32 scalar ``idx``; decode writes them in place. The MoE, hybrid, VLM and
-enc-dec families come with later slices.
+layouts on the model's device, each with an int32 scalar ``idx``, and
+decode writes them in place:
+  - dense: the KV cache ``[L,B,Smax,Hkv,Dh]``;
+  - SSM: ``{"conv": [L,B,W-1,Cin], "ssm": [L,B,H,P,N]}``;
+  - hybrid (recurrentgemma: ``ng`` groups of the (rec, rec, attn) pattern,
+    then ``nt`` tail rec layers): ``{"groups": {"pos{i}": ...}, "tail":
+    ...}`` with, per position, the RG-LRU state ``{"conv": [ng,B,W-1,lw],
+    "lru": [ng,B,lw]}`` or a ring of K/V ``[ng,B,w,Hkv,Dh]``, w =
+    min(window, max_len); the parameters follow the same layout
+    (``groups.{g}.pos{i}``, ``tail.{j}``).
+
+One departure from the reference, in the hybrid prefill: it writes its
+states into a cache made by :func:`init_cache`, so the conv states and the
+K/V ring are in ``cfg.dtype`` and ``lru`` in fp32. The reference returns the
+conv state and the ring in the dtype of the (fp32 master) params it
+prefilled with, and its bf16 decode then fails (the conv promotes the
+branch to fp32, so the layer scan's carry changes dtype: a ``TypeError``).
+Its dense prefill casts its K/V to ``cfg.dtype`` the same way. In fp32 the
+two agree exactly.
+
+The MoE, VLM and enc-dec families come with later slices.
 """
 from __future__ import annotations
 
@@ -17,9 +34,11 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import FAMILY_DENSE, FAMILY_SSM, ModelConfig
+from repro_torch.configs.base import (FAMILY_DENSE, FAMILY_HYBRID, FAMILY_SSM,
+                                      ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
 
@@ -45,11 +64,28 @@ class SSMBlock(nn.Module):
         self.mixer = S.SSDMixer(gen, cfg, dtype)
 
 
+class RecBlock(nn.Module):
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype):
+        super().__init__()
+        self.ln1 = L.Norm(cfg.d_model, cfg.norm, dtype, gen.device)
+        self.mixer = R.RGLRU(gen, cfg, dtype)
+        self.ln2 = L.Norm(cfg.d_model, cfg.norm, dtype, gen.device)
+        self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, cfg.glu, cfg.act, dtype)
+
+
 _BLOCKS = {FAMILY_DENSE: AttnBlock, FAMILY_SSM: SSMBlock}
+_KINDS = {"rec": RecBlock, "attn": AttnBlock}
+PORTED = (FAMILY_DENSE, FAMILY_SSM, FAMILY_HYBRID)
+
+
+def hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_groups, n_tail) for the hybrid's layer pattern."""
+    plen = len(cfg.rglru.pattern)
+    return cfg.num_layers // plen, cfg.num_layers % plen
 
 
 class DecoderLM(nn.Module):
-    """Parameters of the dense or SSM decoder (the reference's param
+    """Parameters of the dense, SSM or hybrid decoder (the reference's param
     pytree)."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
@@ -59,6 +95,16 @@ class DecoderLM(nn.Module):
         self.final_norm = L.Norm(cfg.d_model, cfg.norm, dtype, gen.device)
         if not cfg.tie_embeddings:
             self.head = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
+        if cfg.family == FAMILY_HYBRID:
+            ng, nt = hybrid_counts(cfg)
+            self.groups = nn.ModuleList(nn.ModuleDict(
+                {f"pos{i}": _KINDS[kind](gen, cfg, dtype)
+                 for i, kind in enumerate(cfg.rglru.pattern)})
+                for _ in range(ng))
+            if nt:
+                self.tail = nn.ModuleList(RecBlock(gen, cfg, dtype)
+                                          for _ in range(nt))
+            return
         block = _BLOCKS[cfg.family]
         self.layers = nn.ModuleList(
             block(gen, cfg, dtype) for _ in range(cfg.num_layers))
@@ -66,7 +112,7 @@ class DecoderLM(nn.Module):
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> DecoderLM:
     """Seeded init on ``gen.device``, in ``cfg.param_dtype``."""
-    if cfg.family not in _BLOCKS:
+    if cfg.family not in PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return DecoderLM(gen, cfg)
 
@@ -92,17 +138,46 @@ def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None):
     return x + out, new_state
 
 
+def _rec_block(p: RecBlock, x, cfg: ModelConfig, *, cache=None):
+    out, new_state = R.rglru_block(p.mixer, p.ln1(x), cfg, state=cache)
+    x = x + out
+    return x + p.mlp(p.ln2(x)), new_state
+
+
+def _hybrid_layers(cfg: ModelConfig, params: DecoderLM, caches):
+    """(block, kind, its cache, layer index in that cache) in order: the
+    groups' positions, then the tail."""
+    for g, group in enumerate(params.groups):
+        for i, kind in enumerate(cfg.rglru.pattern):
+            key = f"pos{i}"
+            yield group[key], kind, caches["groups"][key], g
+    for j, lp in enumerate(getattr(params, "tail", ())):
+        yield lp, "rec", caches["tail"], j
+
+
 def _run_stack(cfg: ModelConfig, params: DecoderLM, x, *, positions,
                caches=None, idx=None):
     """Returns (x, caches). With caches, each layer's slice
-    ``caches[...][i]`` (K/V, or the SSM conv and ssm states) is updated in
-    place."""
+    ``caches[...][i]`` (K/V, the SSM conv and ssm states, or the RG-LRU conv
+    and lru states) is updated in place."""
     if cfg.family == FAMILY_SSM:      # decode only: prefill has its own loop
         for i, lp in enumerate(params.layers):
             x, st = _ssm_block(lp, x, cfg, cache={
                 name: caches[name][i] for name in ("conv", "ssm")})
             for name, t in st.items():
                 caches[name][i].copy_(t)
+        return x, caches
+    if cfg.family == FAMILY_HYBRID:   # decode only, as for the SSM family
+        for lp, kind, c, i in _hybrid_layers(cfg, params, caches):
+            if kind == "rec":
+                x, st = _rec_block(lp, x, cfg, cache={
+                    name: c[name][i] for name in ("conv", "lru")})
+                for name, t in st.items():
+                    c[name][i].copy_(t)
+            else:
+                x, _ = _attn_block(lp, x, cfg, positions=positions,
+                                   window=cfg.rglru.window,
+                                   cache=(c["k"][i], c["v"][i]), idx=idx)
         return x, caches
     for i, lp in enumerate(params.layers):
         cache = None if caches is None else (caches["k"][i], caches["v"][i])
@@ -120,10 +195,23 @@ def _head_table(cfg: ModelConfig, params: DecoderLM) -> nn.Embedding:
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Dict[str, Any]:
+    idx = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.family == FAMILY_SSM:
         return {"layers": S.init_ssm_state(cfg, batch, cfg.num_layers,
-                                           _dtype(cfg), device),
-                "idx": torch.zeros((), dtype=torch.int32, device=device)}
+                                           _dtype(cfg), device), "idx": idx}
+    if cfg.family == FAMILY_HYBRID:
+        ng, nt = hybrid_counts(cfg)
+        ring = min(cfg.rglru.window, max_len)
+        shape = (ng, batch, ring, cfg.num_kv_heads, cfg.resolved_head_dim)
+        groups = {
+            f"pos{i}": R.init_rglru_state(cfg, batch, ng, _dtype(cfg), device)
+            if kind == "rec" else
+            {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+             "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+            for i, kind in enumerate(cfg.rglru.pattern)}
+        tail = R.init_rglru_state(cfg, batch, nt, _dtype(cfg), device) \
+            if nt else None
+        return {"layers": {"groups": groups, "tail": tail}, "idx": idx}
     cache = A.init_kv_cache(cfg, batch, max_len, _dtype(cfg), cfg.num_layers,
                             device)
     return {"layers": {"k": cache["k"], "v": cache["v"]},
@@ -137,10 +225,13 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any],
     Runs in the params' dtype (the serve path prefills with the fp32 master
     params, as the reference does). The KV cache is ``cfg.dtype``; the SSM
     states are those the prefill computed (conv in the params' dtype, ssm in
-    fp32), as the reference returns them."""
+    fp32), as the reference returns them; the hybrid's states are cast to
+    the dtypes of :func:`init_cache` (see the module's note)."""
     x = params.embed(batch["tokens"])
     if cfg.family == FAMILY_SSM:
         return _ssm_prefill(cfg, params, x)
+    if cfg.family == FAMILY_HYBRID:
+        return _hybrid_prefill(cfg, params, x, max_len)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :]
     cache = init_cache(cfg, b, max_len, x.device)
@@ -169,11 +260,36 @@ def _ssm_prefill(cfg: ModelConfig, params: DecoderLM, x
     return L.unembed(_head_table(cfg, params), x[:, -1:]), cache
 
 
+def _hybrid_prefill(cfg: ModelConfig, params: DecoderLM, x, max_len: int
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :]
+    cache = init_cache(cfg, b, max_len, x.device)
+    ring = min(cfg.rglru.window, max_len)
+    # the last `ring` positions land at slot pos % ring (the ring layout)
+    pos = torch.arange(max(0, s - ring), s, device=x.device)
+    slots = torch.remainder(pos, ring)
+    for lp, kind, c, i in _hybrid_layers(cfg, params, cache["layers"]):
+        if kind == "rec":
+            x, st = _rec_block(lp, x, cfg)
+            for name, t in st.items():
+                c[name][i].copy_(t)
+        else:
+            x, (k, v) = _attn_block(lp, x, cfg, positions=positions,
+                                    window=cfg.rglru.window)
+            c["k"][i].index_copy_(1, slots, k[:, pos].to(c["k"].dtype))
+            c["v"][i].index_copy_(1, slots, v[:, pos].to(c["v"].dtype))
+    cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    x = params.final_norm(x)
+    return L.unembed(_head_table(cfg, params), x[:, -1:]), cache
+
+
 def decode_step(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
                 cache: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step. tokens: [B,1]. The cache's K/V (or SSM states) are
-    written in place; the returned cache holds them with ``idx + 1``."""
+    """One decode step. tokens: [B,1]. The cache's K/V (or recurrent
+    states) are written in place; the returned cache holds them with
+    ``idx + 1``."""
     x = params.embed(tokens)
     idx = cache["idx"]
     positions = idx[None, None] * torch.ones((x.shape[0], 1),

@@ -4,10 +4,12 @@ ServeExecutor — continuous batching: requests are WQ rows; decode slots claim
 requests from their partition; per-token progress/results are store updates.
 The loop is the reference's (``repro/runtime/executor.py``): claim, prefill
 with the fp32 master params, decode in ``cfg.dtype`` against a ``cfg.dtype``
-cache (the SSM family: the O(1) recurrent state), finish with the output
+cache (the SSM family: the O(1) recurrent state; the hybrid: RG-LRU states
+and a ring of ``min(window, max_len)`` K/V slots), finish with the output
 written back to the store. On a CUDA device the hand-written kernels run
-prefill and decode attention (dense) and the prefill's SSD scan (SSM). The
-training executor comes with the training slice.
+prefill and decode attention (dense, hybrid), the prefill's SSD scan (SSM)
+and its RG-LRU scan (hybrid). The training executor comes with the
+training slice.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """The port's plain flash and decode attention (CPU) against the reference's
-Pallas kernels in interpret mode and their oracles, on the same numpy inputs.
+Pallas kernels in interpret mode and their oracles, on the same numpy inputs,
+and the attention layer's ring-buffer branch against the reference's.
 Tolerances are those of the reference's own kernel tests: 2e-5 in fp32,
 2e-2 in bf16."""
 import numpy as np
@@ -7,13 +8,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode  # noqa: E402
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_ref  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
+from repro.models import attention as JA  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models.attention import sdpa_ref  # noqa: E402
 
 
@@ -110,3 +116,71 @@ def test_sdpa_ref_cache_tail_equals_decode_oracle():
                    causal=True, q_offset=idx, kv_len=idx + 1)
     want = jax_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 41)
     assert _err(got, want) < 2e-5
+
+
+@pytest.mark.parametrize("b,smax,hq,hkv,kvlen,window", [
+    (1, 64, 4, 1, 50, 16),     # the window bites
+    (2, 64, 4, 2, 10, 16),     # fewer keys than the window
+    (1, 300, 8, 1, 300, 256),  # dh 256's head count, a full cache
+])
+def test_windowed_decode_matches_sdpa_ref(b, smax, hq, hkv, kvlen, window):
+    """The decode op's window against the reference's oracle for a 1-token
+    query at position kv_len - 1 (the reference's Pallas decode drops the
+    window; the port follows the oracle)."""
+    q, k, v = _inputs(5, (b, 1, hq, 32), (b, smax, hkv, 32),
+                      (b, smax, hkv, 32))
+    got = kops.decode_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                torch.as_tensor(v),
+                                kv_len=torch.tensor([kvlen],
+                                                    dtype=torch.int32),
+                                window=window)
+    want = JA.sdpa_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=True, window=window, q_offset=kvlen - 1,
+                       kv_len=kvlen)
+    assert _err(got, want) < 2e-5
+    if kvlen > window:      # the window changes the result
+        assert _err(got, jax_decode_ref(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), kvlen)) > 1e-3
+
+
+@pytest.mark.parametrize("t", [0, 3, 7, 8, 13, 21])
+def test_ring_buffer_branch_matches_reference(t):
+    """Sliding-window decode against a ring of exactly ``window`` slots
+    (recurrentgemma smoke: window 8, 4 query heads over 1 KV head): the
+    token at absolute position t goes to slot t % 8, and the output, the
+    written slot and the untouched slots equal the reference's."""
+    cfg = jax_smoke_config("recurrentgemma-9b")
+    tcfg = smoke_config("recurrentgemma-9b")
+    w, d = cfg.rglru.window, cfg.d_model
+    hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    rng = np.random.default_rng(t)
+    p = {name: {"w": (rng.standard_normal(shape) * d ** -0.5)
+                .astype(np.float32)}
+         for name, shape in (("q", (d, cfg.num_heads * hd)),
+                             ("k", (d, hkv * hd)), ("v", (d, hkv * hd)),
+                             ("o", (cfg.num_heads * hd, d)))}
+    mod = TA.Attention(torch.Generator().manual_seed(0), tcfg, torch.float32)
+    with torch.no_grad():
+        for name in p:
+            getattr(mod, name).weight.copy_(torch.as_tensor(p[name]["w"].T))
+    x = rng.standard_normal((2, 1, d)).astype(np.float32)
+    ck, cv = (rng.standard_normal((2, w, hkv, hd)).astype(np.float32)
+              for _ in range(2))
+    pos = np.full((2, 1), t, np.int32)
+    jout, (jk, jv) = jax.jit(JA.attention, static_argnums=2,
+                             static_argnames=("window",))(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x), cfg,
+        positions=jnp.asarray(pos), window=w,
+        cache_kv=(jnp.asarray(ck), jnp.asarray(cv)),
+        cache_idx=jnp.asarray(t, jnp.int32))
+    tk, tv = torch.as_tensor(ck), torch.as_tensor(cv)
+    with torch.no_grad():
+        tout, (rk, rv) = TA.attention(
+            mod, torch.as_tensor(x), tcfg, positions=torch.as_tensor(pos),
+            window=w, cache_kv=(tk, tv),
+            cache_idx=torch.tensor(t, dtype=torch.int32))
+    assert rk is tk and rv is tv                     # written in place
+    assert _err(tout, jout) < 2e-5
+    assert _err(rk, jk) < 2e-5 and _err(rv, jv) < 2e-5
+    others = [s for s in range(w) if s != t % w]
+    assert np.array_equal(rk.numpy()[:, others], ck[:, others])

@@ -52,6 +52,41 @@ def test_ssm_serve_phases_on_cpu(chip_smoke, capsys):
         [("serve", "mamba2-1.3b"), ("serve_check", "mamba2-1.3b")]
 
 
+def test_hybrid_serve_phases_on_cpu(chip_smoke, capsys):
+    """recurrentgemma smoke (window 8): the serve, and the serve check on a
+    4-layer cut (one group and one tail layer) with a prompt longer than the
+    window, so the ring wraps in the prefill."""
+    cfg = smoke_config("recurrentgemma-9b")
+    serve = chip_smoke.phase_serve(cfg, "cpu", requests=3, prompt_len=21,
+                                   max_new=4, slots=2, max_len=40)
+    res = serve["result"]
+    assert res["finished"] == 3 and res["tokens_generated"] == 12
+    assert res["launches"] == {"rglru_scan": 0, "flash_attention": 0,
+                               "decode_attention": 0}
+    assert res["init_peak_mem_bytes"] is None
+    check = chip_smoke.phase_hybrid_check(cfg, "cpu", prompt_len=21)
+    assert check["layers"] == 4 and check["prompt_len"] == 21
+    assert [s["max_abs_err"] for s in check["steps"]] == [0.0] * 4
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(x["phase"], x["arch"]) for x in lines] == \
+        [("serve", "recurrentgemma-9b"), ("serve_check", "recurrentgemma-9b")]
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("qwen2-0.5b", {"flash_attention": 192, "decode_attention": 5952}),
+    ("mamba2-1.3b", {"ssd_scan": 384}),
+    ("recurrentgemma-9b", {"rglru_scan": 208, "flash_attention": 96,
+                           "decode_attention": 2976}),
+])
+def test_serve_launch_counts_of_the_full_configs(chip_smoke, arch, want):
+    """Launches the full-width serve (8 requests, 32 new tokens) must show:
+    recurrentgemma-9b's 26 rec and 12 attention layers are counted from its
+    pattern (12 groups of (rec, rec, attn), then 2 tail rec layers)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    assert chip_smoke.SERVE_LAUNCHES[cfg.family](cfg, 8, 32) == want
+
+
 def test_claim_phase_on_cpu(chip_smoke):
     res = chip_smoke.phase_claim("cpu", tasks=3000, workers=16, rounds=2)
     assert res["equal_to_host_path"] and res["tasks_claimed"] == 16 * 2 * 5

@@ -41,7 +41,7 @@ def test_port_serves_with_jax_blocked():
         "import numpy as np\n"
         "from repro_torch.configs import smoke_config\n"
         "from repro_torch.runtime.executor import ServeExecutor\n"
-        "for arch in ('qwen2-0.5b', 'mamba2-1.3b'):\n"
+        "for arch in ('qwen2-0.5b', 'mamba2-1.3b', 'recurrentgemma-9b'):\n"
         "    cfg = smoke_config(arch)\n"
         "    ex = ServeExecutor(cfg, slots=2, max_len=32, device='cpu')\n"
         "    ex.submit(np.arange(24, dtype=np.int32).reshape(3, 8),\n"
@@ -54,3 +54,4 @@ def test_port_serves_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert "served 3 qwen2-0.5b" in out.stdout
     assert "served 3 mamba2-1.3b" in out.stdout
+    assert "served 3 recurrentgemma-9b" in out.stdout

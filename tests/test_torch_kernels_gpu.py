@@ -19,11 +19,14 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # 
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
 from repro_torch.models.attention import _sdpa  # noqa: E402
+from repro_torch.models.rglru import RGLRU, _rglru_core  # noqa: E402
 from repro_torch.runtime.executor import ServeExecutor  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -82,6 +85,10 @@ def test_wq_claim_kernel_equals_plain(dev, n, w, k):
     (1, 200, 2, 1, 112, True, 64, torch.float32),
     (1, 130, 8, 2, 256, True, 0, torch.bfloat16),
     (3, 1, 4, 2, 64, True, 0, torch.float32),
+    # recurrentgemma-9b's prefill: fp32, dh 256, MQA, window 2048 (biting
+    # past 2048 positions)
+    (1, 1000, 16, 1, 256, True, 2048, torch.float32),
+    (1, 2100, 16, 1, 256, True, 2048, torch.float32),
 ])
 def test_flash_kernel_equals_plain(dev, b, s, hq, hkv, dh, causal, window,
                                    dtype):
@@ -104,15 +111,21 @@ def test_flash_kernel_equals_plain(dev, b, s, hq, hkv, dh, causal, window,
     (1, 2048, 8, 1, 128, 2048, torch.float32),
     (2, 1024, 4, 4, 112, 513, torch.float32),
     (1, 300, 32, 2, 256, 299, torch.bfloat16),   # 16 query heads per KV head
+    # recurrentgemma-9b's decode: the ring of 2048 slots, full and not
+    (1, 2048, 16, 1, 256, 1001, torch.bfloat16),
+    (1, 2048, 16, 1, 256, 2048, torch.bfloat16),
 ])
+@pytest.mark.parametrize("window", [0, 700])
 def test_decode_kernel_equals_plain(dev, b, smax, hq, hkv, dh, kv_len,
-                                    dtype):
+                                    dtype, window):
+    """With a window (a linear cache past the window), positions below
+    kv_len - window are masked too."""
     rng = np.random.default_rng(kv_len)
     q = _randn(rng, (b, 1, hq, dh), dtype, dev)
     k, v = (_randn(rng, (b, smax, hkv, dh), dtype, dev) for _ in range(2))
     kvl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
-    got = decode_attention_fwd(q, k, v, kvl)
-    want = decode_attention_ref(q, k, v, kvl)
+    got = decode_attention_fwd(q, k, v, kvl, window)
+    want = decode_attention_ref(q, k, v, kvl, window)
     torch.cuda.synchronize()
     _assert_close(got, want)
 
@@ -156,6 +169,67 @@ def test_ssd_scan_kernel_equals_plain(dev, bh, s, p, n, chunk, g, dtype,
     assert float((st - rst).abs().max()) <= 1e-4 * float(rst.abs().max())
 
 
+def _rglru_inputs(rng, b, s, c, dtype, dev, slow):
+    """a in (0.9, 1) as the model's Lambda init gives it (about 0.999 in the
+    slow-decay case, where the carry across time chunks dominates h), u
+    normalised by sqrt(1 - a^2)."""
+    if slow:
+        a = 1.0 - 1e-3 * np.exp(0.1 * rng.standard_normal((b, s, c)))
+    else:
+        a = np.linspace(0.9, 0.999, c) ** (
+            1.0 / (1.0 + np.exp(-rng.standard_normal((b, s, c)))))
+    u = np.sqrt(1.0 - a * a) * rng.standard_normal((b, s, c))
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev).to(dtype)
+            for x in (a, u)]
+
+
+@pytest.mark.parametrize("b,s,c,dtype,slow", [
+    (1, 1000, 4096, torch.float32, False),   # recurrentgemma-9b prefill
+    (1, 1031, 4096, torch.float32, False),   # ragged
+    (1, 1000, 4096, torch.bfloat16, False),
+    (1, 4096, 4096, torch.float32, True),    # carry dominates
+    (2, 64, 128, torch.float32, False),      # the reference's kernel-test
+    (1, 256, 512, torch.float32, False),     # shapes
+    (3, 5, 40, torch.float32, True),         # S below the 16 time chunks
+    (2, 300, 100, torch.bfloat16, True),     # C not a multiple of 32
+    (1, 1, 33, torch.float32, False),
+])
+def test_rglru_scan_kernel_equals_plain(dev, b, s, c, dtype, slow):
+    """Against the sequential recurrence: |got - ref| <= 1e-4 max |ref| per
+    element, plus one bf16 step of the value for a bf16 h."""
+    a, u = _rglru_inputs(np.random.default_rng(s + c), b, s, c, dtype, dev,
+                         slow)
+    got = rglru_scan_fwd(a, u)
+    want = rglru_scan_ref(a, u)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = 1e-4 * want.float().abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_rglru_core_from_a_state_launches_the_scan(dev):
+    """Several steps from a state (S > 1 with h0) go through the scan kernel
+    on the card, then carry h0 in, and agree with the same weights on the
+    CPU (plain versions) within 1e-4 of the output's size."""
+    cfg = smoke_config("recurrentgemma-9b")
+    mixer = RGLRU(torch.Generator().manual_seed(0), cfg, torch.float32)
+    rng = np.random.default_rng(7)
+    lw = mixer.conv_w.shape[1]
+    x, h0 = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+             for shape in ((2, 6, lw), (2, lw)))
+    with torch.no_grad():
+        want = _rglru_core(mixer, x, h0)
+        reset_launch_counts()
+        got = _rglru_core(copy.deepcopy(mixer).to(dev), x.to(dev), h0.to(dev))
+        assert launch_counts()["rglru_scan"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= tol
+
+
 def test_dispatch_launches_kernels_or_raises(dev):
     q = torch.zeros((1, 4, 2, 64), device=dev)
     reset_launch_counts()
@@ -170,12 +244,18 @@ def test_dispatch_launches_kernels_or_raises(dev):
     x = torch.zeros((4, 5, 8), device=dev)
     kops.ssd_scan(x, x[:2, :, :4], x[:2, :, :4], x[..., 0], x[..., 0],
                   heads_per_bc=2)
+    kops.rglru_scan(x, x)
+    _sdpa(q[:, :1], q, q, causal=True, window=2, q_offset=3,
+          kv_len=torch.tensor([4], dtype=torch.int32, device=dev))
     assert launch_counts() == {"wq_claim": 1, "flash_attention": 2,
-                               "decode_attention": 1, "ssd_scan": 1}
+                               "decode_attention": 2, "ssd_scan": 1,
+                               "rglru_scan": 1}
     with pytest.raises(TypeError):
         kops.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError):
         kops.ssd_scan(x, x, x, x[..., 0].double(), x[..., 0])
+    with pytest.raises(TypeError):
+        kops.rglru_scan(x, x.to(torch.bfloat16))
 
 
 def test_device_claim_queue_on_card(dev):
@@ -224,6 +304,33 @@ def test_ssm_serve_on_card_matches_cpu(dev):
         assert ex.drain() == 3
         if name == "cuda":
             assert launch_counts()["ssd_scan"] == 3 * cfg.num_layers
+        outs[name] = [ex.wq.store.blobs[int(t)]["output"] for t in ids]
+    assert all(np.array_equal(a, b) for a, b in zip(outs["cuda"],
+                                                    outs["cpu"]))
+
+
+def test_hybrid_serve_on_card_matches_cpu(dev):
+    """recurrentgemma smoke (window 8; 70-token prompts, so the prefill's
+    window bites and the ring wraps): the RG-LRU scan in every rec layer's
+    prefill, flash and ring decode attention in the attention layer; greedy
+    outputs on the card equal those of the same weights on the CPU."""
+    cfg = smoke_config("recurrentgemma-9b")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 70)).astype(np.int32)
+    outs = {}
+    for name in ("cuda", "cpu"):
+        ex = ServeExecutor(cfg, slots=2, max_len=96, device=name)
+        if name == "cpu":
+            ex.set_params(copy.deepcopy(outs["params"]).to("cpu"))
+        outs["params"] = ex.params
+        reset_launch_counts()
+        ids = ex.submit(prompts, max_new=6)
+        assert ex.drain() == 3
+        if name == "cuda":
+            counts = launch_counts()
+            assert counts["rglru_scan"] == 3 * 2
+            assert counts["flash_attention"] == 3
+            assert counts["decode_attention"] == 3 * 5
         outs[name] = [ex.wq.store.blobs[int(t)]["output"] for t in ids]
     assert all(np.array_equal(a, b) for a, b in zip(outs["cuda"],
                                                     outs["cpu"]))

@@ -32,9 +32,10 @@ def pair():
 
 
 def test_configs_are_copied_unchanged():
-    for arch in ("qwen2-0.5b", "glm4-9b", "mamba2-1.3b"):
+    for arch in ("qwen2-0.5b", "glm4-9b", "mamba2-1.3b",
+                 "recurrentgemma-9b"):
         assert repr(get_config(arch)) == repr(jax_get_config(arch))
-    for arch in ("qwen2-0.5b", "mamba2-1.3b"):
+    for arch in ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b"):
         assert repr(smoke_config(arch)) == repr(jax_smoke_config(arch))
 
 
@@ -74,7 +75,7 @@ def test_prefill_and_decode_match_reference(pair):
 
 
 def test_other_families_name_their_roadmap_item():
-    for arch in ("recurrentgemma-9b", "granite-moe-3b-a800m", "qwen2-vl-2b",
+    for arch in ("granite-moe-3b-a800m", "qwen2-vl-2b",
                  "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(smoke_config(arch))

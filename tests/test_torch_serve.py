@@ -1,7 +1,7 @@
 """The port's ServeExecutor: a twin of the reference's serve test on the CPU,
 greedy outputs identical to the reference executor (Pallas kernels in
-interpret mode) on converted params, for the dense and the SSM family, and
-no silent move to the CPU."""
+interpret mode) on converted params, for the dense, SSM and hybrid
+families, and no silent move to the CPU."""
 import dataclasses
 
 import numpy as np
@@ -67,6 +67,14 @@ def test_ssm_greedy_outputs_identical_to_reference_executor():
     _greedy_parity("mamba2-1.3b")
 
 
+def test_hybrid_greedy_outputs_identical_to_reference_executor():
+    """recurrentgemma (smoke: window 8, so the 9-token prompts wrap the ring
+    of K/V in the prefill and again while decoding): the reference prefills
+    with its associative scan, the port with the plain scan the CPU
+    dispatch reaches."""
+    _greedy_parity("recurrentgemma-9b")
+
+
 def test_max_len_cap_finishes_early():
     cfg = smoke_config("qwen2-0.5b")
     ex = ServeExecutor(cfg, slots=1, max_len=12, device="cpu")
@@ -91,5 +99,11 @@ def test_cli_serves_on_requested_device(capsys):
 
 def test_cli_serves_mamba2_on_cpu(capsys):
     serve.main(["--arch", "mamba2-1.3b", "--smoke", "--requests", "3",
+                "--slots", "2", "--max-new", "3", "--device", "cpu"])
+    assert "served 3 requests" in capsys.readouterr().out
+
+
+def test_cli_serves_recurrentgemma_on_cpu(capsys):
+    serve.main(["--arch", "recurrentgemma-9b", "--smoke", "--requests", "3",
                 "--slots", "2", "--max-new", "3", "--device", "cpu"])
     assert "served 3 requests" in capsys.readouterr().out

@@ -33,9 +33,11 @@ Phases, each printing JSON lines:
      carried across chunks dominates the output; the attention kernels also
      at recurrentgemma-9b's shapes, windowed), with its error, its time and
      its bound (the RG-LRU scan's times with L2 flushed before each call, so
-     that they are held against the HBM bound they are compared with), then
-     one ``{"kernels": [...]}`` line: one entry per kernel and model that
-     launches it, with that serve run's launches.
+     that they are held against the HBM bound they are compared with; the
+     decode attention's and SSD scan's both back to back and flushed, beside
+     SDPA's in the same two modes), then one ``{"kernels": [...]}`` line:
+     one entry per kernel and model that launches it, with that serve run's
+     launches and the device times of the kernel and of its library call.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises:
 the script then exits non-zero and does not print that line. Without a CUDA
 card it refuses to run.
@@ -98,9 +100,12 @@ RGLRU_REL_TOL = 1e-4
 # recurrentgemma-9b's weights are 51.5 GB (34.3 GB fp32 master, 17.2 GB bf16
 # decode copy); a second fp32 copy during the cast would pass this
 HYBRID_MAX_PEAK_BYTES = 56e9
-# published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
+# published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W);
+# "tf32" is the tensor cores' TF32 rate, which the SSD scan's 3xTF32
+# products run at
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12}
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12,
+            "tf32": 495e12}
 
 SRC = {"wq_claim": "src/repro_torch/csrc/wq_claim.cu",
        "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -411,25 +416,46 @@ def _device_kernel_us(prof) -> dict:
             and e.self_device_time_total > 0}
 
 
-def device_ms(fn, iters: int = 20, cold_kernel: str = ""):
+def _profile_us(body, tries: int = 3) -> dict:
+    """Device time by kernel name of ``body`` under torch.profiler; a
+    profile that came back without any device activity is taken again (up
+    to ``tries`` times in all), as that happens now and then on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        found = _device_kernel_us(prof)
+        if found:
+            break
+    return found
+
+
+def device_ms(fn, iters: int = 20, cold: bool = False):
     """Mean device time per call of the work ``fn`` puts on the card
     (torch.profiler, CUDA activity only): the kernels' own time, without
     the host's launch overhead that back-to-back event timing includes.
-    ``cold_kernel``: each call after :func:`flush_l2`, and only the kernels
-    whose name holds that string are summed. None when the profiler records
-    no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+    ``cold``: each call after :func:`flush_l2`, whose own kernels (those of
+    a flush profiled alone, and any reduction: the flush is an ``amax``)
+    are left out of the sum. None when the profiler records no device
+    activity."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    flush = set(_profile_us(flush_l2)) if cold else set()
+
+    def body():
         for _ in range(iters):
-            if cold_kernel:
+            if cold:
                 flush_l2()
             fn()
-        torch.cuda.synchronize()
-    total = sum(us for name, us in _device_kernel_us(prof).items()
-                if cold_kernel in name)
-    return total / iters / 1e3 if total else None
+
+    # the median of three profiles: now and then a profile misses part of
+    # the kernels it should hold
+    totals = sorted(
+        sum(us for name, us in _profile_us(body).items()
+            if not (cold and (name in flush or "reduce_kernel" in name)))
+        for _ in range(3))
+    return totals[1] / iters / 1e3 if totals[1] else None
 
 
 def _bound(nbytes: float, ops: float, dtype) -> dict:
@@ -541,10 +567,15 @@ def _decode_case(dev, smax, hq, hkv, dh, kv_len, dtype, rng, window=0,
            "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, kvl,
                                                             window), 50),
            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True),
-                                 200)}
+                                 200),
+           "timing": "ms, device_ms, library_device_ms: back to back, warm "
+                     "in L2; *_cold: L2 flushed before each call"}
+    lib = functools.partial(sdpa, qt, kt, vt, enable_gqa=True)
+    row["ms_cold"] = time_ms(dec, 100, cold=True)
     row["device_ms"] = device_ms(dec)
-    row["library_device_ms"] = device_ms(lambda: sdpa(qt, kt, vt,
-                                                      enable_gqa=True))
+    row["device_ms_cold"] = device_ms(dec, cold=True)
+    row["library_device_ms"] = device_ms(lib)
+    row["library_device_ms_cold"] = device_ms(lib, cold=True)
     # the visible K and V read once, q read and out written once
     live = kv_len - lo
     nbytes = q.element_size() * (2 * live * hkv * dh + 2 * q.numel()) + 4
@@ -627,12 +658,21 @@ def _ssd_case(dev, case, b, h, s, p, n, chunk, dtype, slow, rng):
            "dtype": str(dtype)[6:], **err, "tol": f"{SSD_REL_TOL} * max|ref|"
            + (" + 2**-7 * |ref|" if dtype == torch.bfloat16 else ""),
            "ms": time_ms(lambda: ssd_scan_fwd(*args, chunk=chunk, **kw), 20),
+           "timing": "ms, device_ms: back to back, warm in L2; *_cold: L2 "
+                     "flushed before each call",
            "plain_ms": time_ms(lambda: ssd_scan_ref(*args, **kw), 2, 1),
            "library_ms": None}
-    row["device_ms"] = device_ms(lambda: ssd_scan_fwd(*args, chunk=chunk,
-                                                      **kw))
+    scan = functools.partial(ssd_scan_fwd, *args, chunk=chunk, **kw)
+    row["ms_cold"] = time_ms(scan, 20, cold=True)
+    row["device_ms"] = device_ms(scan)
+    row["device_ms_cold"] = device_ms(scan, cold=True)
     ops, nbytes = ssd_ops_bytes(b * h, s, p, n, chunk, h, dtype)
-    row.update(_bound(nbytes, ops, dtype))
+    # the kernel's route: every product as three TF32 products on the tensor
+    # cores; the bound of the same work on fp32 FMAs (bf16: on its tensor
+    # cores), as earlier readings were held against, beside it
+    row["bound_before_ms"] = _bound(nbytes, ops, dtype)["bound_ms"]
+    row.update(_bound(nbytes, 3.0 * ops, "tf32"))
+    row["useful_ops"] = ops
     return row
 
 
@@ -692,8 +732,7 @@ def _rglru_case(dev, case, b, s, c, dtype, slow, rng):
            "ms": time_ms(lambda: rglru_scan_fwd(a, u), 100, cold=True),
            "plain_ms": time_ms(lambda: rglru_scan_ref(a, u), 3, 1),
            "library_ms": None}
-    row["device_ms"] = device_ms(lambda: rglru_scan_fwd(a, u),
-                                 cold_kernel="rglru_fwd")
+    row["device_ms"] = device_ms(lambda: rglru_scan_fwd(a, u), cold=True)
     ops, nbytes = rglru_ops_bytes(b, s, c, dtype)
     row.update(_bound(nbytes, ops, dtype))
     return row
@@ -775,7 +814,9 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+                    "library_ms": r["library_ms"],
+                    "device_ms": r["device_ms"],
+                    "library_device_ms": r.get("library_device_ms")})
     return {"kernels": out}
 
 

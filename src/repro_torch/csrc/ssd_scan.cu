@@ -13,72 +13,224 @@
 // for the reference's layout, g = H when the model passes B/C once per batch
 // row: mamba2 has one B/C group, so the 64 heads share one copy).
 //
-// What differs from the TPU design, and why:
-// - The TPU kernel holds a whole chunk in VMEM (B and C [256, 128] fp32,
-//   128 KB each, the [256, 256] score matrix, the state). A block here has
-//   at most 227 KB of shared memory, so the chunk is tiled: 64-row query
-//   tiles of C against streamed 64-row key tiles of B and x, with only the
-//   64 x 64 masked score tile and the state slice in shared memory. Key
-//   tiles above the diagonal are never visited.
-// - Grid (BH, P / 32): the 32-column slices of the head dim are
-//   independent (row p of S and column p of y depend only on column p of x
-//   and row p of S), so at batch 1 the 64 heads of mamba2 give 128 blocks
-//   for the 132 SMs, at the cost of computing C.B^T once per slice. Each
-//   block walks the chunks in order itself (the TPU's sequential grid axis).
-// - The ragged last chunk (S = 1000 with Q = 256 leaves 232) is masked,
-//   which equals the reference model's zero-dt padding; the Pallas grid
-//   floor-divides and never writes such a tail.
-// - dacum is summed in fp64 (one warp, per chunk) and each decay exponent
-//   dacum_i - dacum_j is taken in fp64 before the fp32 exp. With random
-//   weights da is -0.3 to -30 per step, so the cumsum reaches thousands,
-//   where an fp32 difference of two cumsums carries an absolute error of
-//   an ulp of thousands into every near-diagonal decay exponent; the fp64
-//   difference keeps each decay at fp32 accuracy, as the sequential
-//   recurrence (the plain version) computes it step by step. The
-//   mask is applied before the exp (above the diagonal the exponent is
-//   large and positive: exp(li) * 0 would be inf * 0 = NaN).
-// - Products are fp32 FMAs from shared memory for fp32 and bf16 inputs
-//   alike (bf16 is widened on load): no TF32, so the serve path's fp32
-//   prefill keeps full precision, as the reference's does.
-//
 // Bound on an H100 at the serve path's prefill (mamba2-1.3b, S = 1000,
 // BH = 64, P = 64, N = 128, Q = 256, fp32, B/C shared by the 64 heads):
 // the lower-triangle products need 2 (Q(Q+1)/2 (N/64 + P) + 2 Q N P) flop
-// per (bh, chunk) (no C.S^T in the first chunk), 2.9 GFLOP in all,
-// 0.043 ms at the 67 TFLOP/s fp32 (non-tensor) peak, against 36 MB of
-// inputs and outputs (0.011 ms at 3.35 TB/s): operations bind. This
-// simple kernel recomputes C.B^T in every block (64 heads x 2 slices) and
-// reads two shared floats per FMA, so it is bound by its shared-memory
-// reads; sharing the scores across heads and tensor-core (mma/wgmma) tiles
-// are later work.
+// per (bh, chunk) (no C.S^T in the first chunk), 2.9 GFLOP in all. On this
+// route (3xTF32 on the tensor cores, below) that is 8.7 GFLOP at 495 TFLOP/s,
+// 0.0175 ms, against 36 MB of inputs and outputs (0.011 ms at 3.35 TB/s);
+// on fp32 FMAs it would be 0.043 ms at 67 TFLOP/s.
+//
+// Design: the SSD algorithm's own decomposition (arXiv:2405.21060, sec. 6),
+// in three launches that run over (row or head, chunk, tile) at once; only
+// the passing of the [P, N] state from chunk to chunk is sequential.
+//   1. ssd_chunk: (a) the scores C_c B_c^T of each chunk, once per B/C row
+//      (shared by the g heads that read it), the 64 x 64 tiles on or below
+//      the diagonal only, into a [rows, chunks, Q, Q] buffer (1 MB at the
+//      serve shape); (b) each chunk's own state contribution
+//      sum_j w_j x_j^T B_j, w_j = dt_j exp(dacum_end - dacum_j), per (head,
+//      chunk, 64 x 64 tile of [P, N]), and exp(dacum_end).
+//   2. ssd_pass: per (head, p, n), the scan over chunks: the state entering
+//      chunk c replaces chunk c's contribution in place, and the last state
+//      is the output state.
+//   3. ssd_out: per (head, chunk, 64-row tile, 64-column tile of P),
+//      exp(dacum_i) C_i S_c^T from the entering state, then the masked,
+//      decayed scores times x, up to the diagonal.
+// Every product is a 64 x 64 block tile, 8 warps of 16 x 32, over slabs of
+// 32 along the reduction, staged in shared memory and fed to
+// mma.sync.m16n8k8 TF32; the next slab's global loads are in flight while
+// this slab's products run, and two blocks share an SM (128 registers). The reference's prefill is fp32 without TF32, and
+// plain TF32 keeps ~11 bits, too few for the 1e-4 limit once the state sums
+// 16 chunks; so each operand is split once, when staged, into a TF32 high
+// part and a TF32 remainder, and each product is the sum of three TF32
+// products (lo.hi + hi.lo + hi.hi, fp32 accumulation; lo.lo, ~2^-22 of the
+// product, is dropped): 3xTF32, near fp32 accuracy at 3x the tensor work.
+// Kept from the first design: dacum is summed in fp64 (one warp per chunk),
+// and every decay exponent dacum_i - dacum_j is taken in fp64 before the
+// fp32 exp (with random weights da is -0.3 to -30 a step and the cumsum
+// reaches thousands, where an fp32 difference would carry an ulp of
+// thousands into every near-diagonal decay); the mask is applied before the
+// exp (above the diagonal exp would overflow and inf * 0 is NaN); the
+// ragged last chunk is masked, which equals the reference model's zero-dt
+// padding (the Pallas grid floor-divides and never writes such a tail).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kT = 64;         // rows of a query or key tile
-constexpr int kPT = 32;        // head-dim columns per block
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kThreads = 256;  // 8 warps: 4 (rows) x 2 (columns) of 16 x 32
+constexpr int kB = 64;         // rows and columns of a block tile
+constexpr int kK = 32;         // reduction slab
+constexpr int kLdM = kK + 4;   // [64][36]: rows m (or n), inner k
+constexpr int kLdK = kB + 8;   // [32][72]: rows k, inner m (or n)
+constexpr int kPlane = kB * kLdM;   // == kK * kLdK floats
 constexpr size_t kMaxSmem = 232448;
 
-template <int NW>
-size_t ssd_smem_bytes(int q) {
-  return (size_t)q * (sizeof(double) + 2 * sizeof(float)) +
-         (size_t)(2 * kT * (NW + 1) + kT * (kPT + 1) + kT * (kT + 1) +
-                  kPT * (NW + 1)) * sizeof(float);
+static_assert(kB * kLdM == kK * kLdK, "planes of one size");
+
+__device__ __forceinline__ unsigned tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// dac[i] = da[0] + ... + da[i] in fp64 (one warp: each lane sums a
-// contiguous segment, then a shuffle scan of the segment sums), dts = dt
+// d += a b, a 16 x 8 (row), b 8 x 8 (col), TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A slab operand in shared memory: the TF32 high parts and remainders of a
+// 64 x 32 tile. K-major: [k][72] (global rows along k, contiguous along m or
+// n); else [m][36] (contiguous along k). The paddings keep both the staging
+// stores and the fragment loads on 32 different banks.
+struct Planes {
+  unsigned* hi;
+  unsigned* lo;
+};
+
+template <bool KMAJ>
+__device__ __forceinline__ int at(int r, int k) {
+  return KMAJ ? k * kLdK + r : r * kLdM + k;
+}
+
+// element e (of 8) of a thread's share of a 64 x 32 slab operand: row r
+// (m or n) and reduction index k; consecutive threads walk the dimension
+// that is contiguous in global memory
+template <bool KMAJ>
+__device__ __forceinline__ void coords(int e, int& r, int& k) {
+  const int idx = threadIdx.x + e * kThreads;
+  r = KMAJ ? idx % kB : idx / kK;
+  k = KMAJ ? idx / kB : idx % kK;
+}
+
+// acc += A B over one slab: A [64 rows m][32 k], B [32 k][64 columns n];
+// warp w holds rows 16 (w / 2) .. +16 and columns 32 (w % 2) .. +32, as
+// four m16n8 accumulators: acc[t] = (row gid, col 2 tig + {0, 1}) and
+// (row gid + 8, ...) of the 8 columns from 8 t
+template <bool AK, bool BK>
+__device__ __forceinline__ void mma_slab(Planes A, Planes B,
+                                         float (&acc)[4][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = (warp >> 1) * 16, n0 = (warp & 1) * 32;
+#pragma unroll
+  for (int k0 = 0; k0 < kK; k0 += 8) {
+    unsigned ah[4], al[4];
+    const int ia[4] = {at<AK>(m0 + gid, k0 + tig), at<AK>(m0 + gid + 8, k0 + tig),
+                       at<AK>(m0 + gid, k0 + tig + 4),
+                       at<AK>(m0 + gid + 8, k0 + tig + 4)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = A.hi[ia[i]];
+      al[i] = A.lo[ia[i]];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int n = n0 + 8 * t + gid;
+      const int i0 = at<BK>(n, k0 + tig), i1 = at<BK>(n, k0 + tig + 4);
+      const unsigned bh[2] = {B.hi[i0], B.hi[i1]};
+      const unsigned bl[2] = {B.lo[i0], B.lo[i1]};
+      mma_tf32(acc[t], al, bh);
+      mma_tf32(acc[t], ah, bl);
+      mma_tf32(acc[t], ah, bh);
+    }
+  }
+}
+
+constexpr int kPer = kB * kK / kThreads;   // operand elements per thread
+
+// acc += sum over nslab slabs s of A_s B_s. fa(s, r, k) reads the raw value
+// of A's element (row r, reduction k) of slab s from global memory, in its
+// stored type (0 where masked); ga(s, r, k, raw) turns it into the fp32
+// operand when it is staged (then split into TF32 parts); fb, gb likewise
+// for B. Slab s + 1's loads are in flight while slab s's products run:
+// nothing uses a loaded value, not even to widen it, before the products
+// are issued.
+template <bool AK, bool BK, typename FA, typename GA, typename FB, typename GB>
+__device__ __forceinline__ void gemm(int nslab, Planes A, Planes B, FA fa,
+                                     GA ga, FB fb, GB gb,
+                                     float (&acc)[4][4]) {
+  decltype(fa(0, 0, 0)) ra[kPer];
+  decltype(fb(0, 0, 0)) rb[kPer];
+  auto fetch = [&](int sl) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      int r, k;
+      coords<AK>(e, r, k);
+      ra[e] = fa(sl, r, k);
+      coords<BK>(e, r, k);
+      rb[e] = fb(sl, r, k);
+    }
+  };
+  auto put = [](Planes p, int at_, float v) {
+    const unsigned h = tf32(v);
+    p.hi[at_] = h;
+    p.lo[at_] = tf32(v - __uint_as_float(h));
+  };
+  if (nslab > 0) fetch(0);
+  for (int sl = 0; sl < nslab; ++sl) {
+    __syncthreads();   // the previous products are done with the planes
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      int r, k;
+      coords<AK>(e, r, k);
+      put(A, at<AK>(r, k), ga(sl, r, k, ra[e]));
+      coords<BK>(e, r, k);
+      put(B, at<BK>(r, k), gb(sl, r, k, rb[e]));
+    }
+    __syncthreads();
+    if (sl + 1 < nslab) fetch(sl + 1);
+    mma_slab<AK, BK>(A, B, acc);
+  }
+}
+
+struct Widen {   // an operand staged as it was read, widened to fp32
+  template <typename U>
+  __device__ float operator()(int, int, int, U v) const {
+    return repro::to_float(v);
+  }
+};
+
+// row (0..63) and column (0..63) of accumulator element e of acc[t]
+__device__ __forceinline__ int acc_row(int e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp >> 1) * 16 + (lane >> 2) + (e >> 1) * 8;
+}
+__device__ __forceinline__ int acc_col(int t, int e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp & 1) * 32 + 8 * t + 2 * (lane & 3) + (e & 1);
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+}
+
+// dac[i] = da[0] + ... + da[i] in fp64, dts = dt. Every thread loads a
+// share of da (one round trip), then one warp scans it in place: each lane
+// sums a contiguous segment, then a shuffle scan of the segment sums.
 template <typename T>
 __device__ void chunk_scan(const T* __restrict__ da, const T* __restrict__ dt,
                            int qc, double* dac, float* dts) {
+  for (int i = threadIdx.x; i < qc; i += kThreads) {
+    dac[i] = (double)repro::to_float(da[i]);
+    dts[i] = repro::to_float(dt[i]);
+  }
+  __syncthreads();
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     const int per = (qc + 31) / 32;
     const int lo = min(lane * per, qc);
     const int hi = min(lo + per, qc);
     double run = 0.0;
-    for (int i = lo; i < hi; ++i) run += (double)repro::to_float(da[i]);
+    for (int i = lo; i < hi; ++i) run += dac[i];
     double incl = run;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -87,273 +239,310 @@ __device__ void chunk_scan(const T* __restrict__ da, const T* __restrict__ dt,
     }
     double acc = incl - run;
     for (int i = lo; i < hi; ++i) {
-      acc += (double)repro::to_float(da[i]);
+      acc += dac[i];
       dac[i] = acc;
     }
   }
-  for (int i = threadIdx.x; i < qc; i += kThreads)
-    dts[i] = repro::to_float(dt[i]);
 }
 
-// dst [kT][NW+1] <- rows row0.. of src [*, n]; rows past nrows and columns
-// past n read as zero
-template <typename T, int NW>
-__device__ void load_bc(float* dst, const T* __restrict__ src, int row0,
-                        int nrows, int n) {
-  for (int idx = threadIdx.x; idx < kT * NW; idx += kThreads) {
-    const int r = idx / NW;
-    const int k = idx - r * NW;
-    float v = 0.f;
-    if (r < nrows && k < n) v = repro::to_float(src[(size_t)(row0 + r) * n + k]);
-    dst[r * (NW + 1) + k] = v;
-  }
+struct Shape {
+  int bh, s, p, n, q, g, nch;   // q: chunk length, nch: chunks
+};
+
+// shared memory: four planes (A and B, high and remainder), then the
+// chunk's dacum (fp64), dt and w
+size_t smem_bytes(int q) {
+  return (size_t)4 * kPlane * sizeof(unsigned) +
+         (size_t)q * (sizeof(double) + 2 * sizeof(float));
 }
 
-// dst [kT][kPT+1] <- x[row0 + r][p0 + c] (times w[r] when w is given); rows
-// past nrows and columns past p read as zero
+struct Smem {
+  Planes a, b;
+  double* dac;
+  float* dts;
+  float* w;
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* smem, int q) {
+  unsigned* u = reinterpret_cast<unsigned*>(smem);
+  Smem s;
+  s.a = {u, u + kPlane};
+  s.b = {u + 2 * kPlane, u + 3 * kPlane};
+  s.dac = reinterpret_cast<double*>(u + 4 * kPlane);
+  s.dts = reinterpret_cast<float*>(s.dac + q);
+  s.w = s.dts + q;
+  return s;
+}
+
+// 1. (a) scores of a (B/C row, chunk, 64 x 64 tile on or below the
+// diagonal); (b) a chunk's own state contribution, one 64 x 64 tile of
+// [P, N] per block, and exp(dacum_end)
 template <typename T>
-__device__ void load_x(float* dst, const T* __restrict__ xb, int row0,
-                       int nrows, int p0, int p, const float* w) {
-  for (int idx = threadIdx.x; idx < kT * kPT; idx += kThreads) {
-    const int r = idx / kPT;
-    const int c = idx - r * kPT;
-    float v = 0.f;
-    if (r < nrows && p0 + c < p) {
-      v = repro::to_float(xb[(size_t)(row0 + r) * p + p0 + c]);
-      if (w != nullptr) v *= w[r];
-    }
-    dst[r * (kPT + 1) + c] = v;
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk(const T* __restrict__ x, const T* __restrict__ bm,
+          const T* __restrict__ cm, const T* __restrict__ dt,
+          const T* __restrict__ da, float* __restrict__ scores,
+          float* __restrict__ states, float* __restrict__ gdec, Shape sh,
+          int ntri) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Smem sm = carve(smem, sh.q);
+  const T zero = repro::from_float<T>(0.f);
+  float acc[4][4];
+  zero_acc(acc);
+  int lin = blockIdx.x;
+  const int rows = sh.bh / sh.g;
+  if (lin < rows * sh.nch * ntri) {
+    int tri = lin % ntri;
+    const int rc = lin / ntri;   // row * nch + c
+    const int c0 = (rc % sh.nch) * sh.q;
+    const int qc = min(sh.q, sh.s - c0);
+    int ti = 0;
+    while (tri > ti) tri -= ++ti;
+    const int tj = tri;
+    if (ti * kB >= qc) return;
+    const T* cb = cm + ((size_t)(rc / sh.nch) * sh.s + c0) * sh.n;
+    const T* bb = bm + ((size_t)(rc / sh.nch) * sh.s + c0) * sh.n;
+    gemm<false, false>(
+        (sh.n + kK - 1) / kK, sm.a, sm.b,
+        [&](int sl, int r, int k) {   // A[i][n] = C_i[n]
+          const int i = ti * kB + r, kk = sl * kK + k;
+          return i < qc && kk < sh.n ? cb[(size_t)i * sh.n + kk] : zero;
+        },
+        Widen{},
+        [&](int sl, int r, int k) {   // B[n][j] = B_j[n]
+          const int j = tj * kB + r, kk = sl * kK + k;
+          return j < qc && kk < sh.n ? bb[(size_t)j * sh.n + kk] : zero;
+        },
+        Widen{}, acc);
+    float* out = scores + (size_t)rc * sh.q * sh.q;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = ti * kB + acc_row(e), j = tj * kB + acc_col(t, e);
+        if (i < qc && j < qc) out[(size_t)i * sh.q + j] = acc[t][e];
+      }
+    return;
   }
-}
-
-template <typename T, int NW>
-__global__ void __launch_bounds__(kThreads)
-ssd_fwd(const T* __restrict__ x, const T* __restrict__ bm,
-        const T* __restrict__ cm, const T* __restrict__ dt,
-        const T* __restrict__ da, T* __restrict__ y, float* __restrict__ st,
-        int s, int p, int n, int q, int g) {
-  constexpr int NB = NW / 16;   // state columns per thread
-  extern __shared__ double smem_d[];
-  double* dac = smem_d;                       // [q]   chunk cumsum of da
-  float* dts = (float*)(dac + q);             // [q]   dt
-  float* wts = dts + q;                       // [q]   dt * decay to chunk end
-  float* Cs = wts + q;                        // [kT][NW+1]
-  float* Bs = Cs + kT * (NW + 1);             // [kT][NW+1]
-  float* Xs = Bs + kT * (NW + 1);             // [kT][kPT+1]
-  float* Ps = Xs + kT * (kPT + 1);            // [kT][kT+1]   masked scores
-  float* Ss = Ps + kT * (kT + 1);             // [kPT][NW+1]  state slice
-
-  const int bh = blockIdx.x;
-  const int p0 = blockIdx.y * kPT;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;      // rows ty + 16 a
-  const int tx = tid & 15;      // columns tx + 16 b
-  const T* xb = x + (size_t)bh * s * p;
-  const T* bb = bm + (size_t)(bh / g) * s * n;
-  const T* cb = cm + (size_t)(bh / g) * s * n;
-  T* yb = y + (size_t)bh * s * p;
-
-  for (int i = tid; i < kPT * (NW + 1); i += kThreads) Ss[i] = 0.f;
-
-  for (int c0 = 0; c0 < s; c0 += q) {
-    const int qc = min(q, s - c0);
-    __syncthreads();   // the previous chunk's reads and state writes done
-    chunk_scan<T>(da + (size_t)bh * s + c0, dt + (size_t)bh * s + c0, qc,
-                  dac, dts);
-    __syncthreads();
-    const double dend = dac[qc - 1];
-    for (int i = tid; i < qc; i += kThreads)
-      wts[i] = dts[i] * expf((float)(dend - dac[i]));
-
-    // ---- y, one 64-row query tile at a time
-    for (int i0 = 0; i0 < qc; i0 += kT) {
-      __syncthreads();   // Cs / Bs / Xs / Ps free, wts written
-      load_bc<T, NW>(Cs, cb, c0 + i0, min(kT, qc - i0), n);
-      __syncthreads();
-
-      // the state entering the chunk: exp(dacum_i) C_i . S_p
-      float acc[4][2];
-      {
-        float t[4][2];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 2; ++b) t[a][b] = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < NW; ++k) {
-          float cv[4], sv[2];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) cv[a] = Cs[(ty + 16 * a) * (NW + 1) + k];
-#pragma unroll
-          for (int b = 0; b < 2; ++b) sv[b] = Ss[(tx + 16 * b) * (NW + 1) + k];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b) t[a][b] = fmaf(cv[a], sv[b], t[a][b]);
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = i0 + ty + 16 * a;
-          const float e = i < qc ? expf((float)dac[i]) : 0.f;
-#pragma unroll
-          for (int b = 0; b < 2; ++b) acc[a][b] = t[a][b] * e;
-        }
-      }
-
-      // within the chunk: key tiles up to the diagonal one
-      for (int j0 = 0; j0 <= i0; j0 += kT) {
-        __syncthreads();   // previous Bs / Xs / Ps reads done
-        load_bc<T, NW>(Bs, bb, c0 + j0, min(kT, qc - j0), n);
-        load_x<T>(Xs, xb, c0 + j0, min(kT, qc - j0), p0, p, nullptr);
-        __syncthreads();
-        float sc[4][4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) sc[a][b] = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < NW; ++k) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) cv[a] = Cs[(ty + 16 * a) * (NW + 1) + k];
-#pragma unroll
-          for (int b = 0; b < 4; ++b) bv[b] = Bs[(tx + 16 * b) * (NW + 1) + k];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 4; ++b) sc[a][b] = fmaf(cv[a], bv[b], sc[a][b]);
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = i0 + ty + 16 * a;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int j = j0 + tx + 16 * b;
-            float v = 0.f;   // mask before the exp: above the diagonal
-            if (j <= i && i < qc)   // the exponent is large and positive
-              v = sc[a][b] * expf((float)(dac[i] - dac[j])) * dts[j];
-            Ps[(ty + 16 * a) * (kT + 1) + tx + 16 * b] = v;
-          }
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int jj = 0; jj < kT; ++jj) {
-          float pv[4], xv[2];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) pv[a] = Ps[(ty + 16 * a) * (kT + 1) + jj];
-#pragma unroll
-          for (int b = 0; b < 2; ++b) xv[b] = Xs[jj * (kPT + 1) + tx + 16 * b];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b) acc[a][b] = fmaf(pv[a], xv[b], acc[a][b]);
-        }
-      }
-
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = i0 + ty + 16 * a;
-        if (i >= qc) continue;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int col = p0 + tx + 16 * b;
-          if (col < p)
-            yb[(size_t)(c0 + i) * p + col] = repro::from_float<T>(acc[a][b]);
-        }
-      }
-    }
-
-    // ---- state: S <- exp(dacum_end) S + sum_j w_j x_j^T B_j
-    float sacc[2][NB];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < NB; ++b) sacc[a][b] = 0.f;
-    for (int j0 = 0; j0 < qc; j0 += kT) {
-      __syncthreads();   // previous Bs / Xs reads done
-      load_bc<T, NW>(Bs, bb, c0 + j0, min(kT, qc - j0), n);
-      load_x<T>(Xs, xb, c0 + j0, min(kT, qc - j0), p0, p, wts + j0);
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < kT; ++jj) {
-        float xv[2], bv[NB];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) xv[a] = Xs[jj * (kPT + 1) + ty + 16 * a];
-#pragma unroll
-        for (int b = 0; b < NB; ++b) bv[b] = Bs[jj * (NW + 1) + tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int b = 0; b < NB; ++b) sacc[a][b] = fmaf(xv[a], bv[b], sacc[a][b]);
-      }
-    }
-    const float gdec = expf((float)dend);
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        float* sv = &Ss[(ty + 16 * a) * (NW + 1) + tx + 16 * b];
-        *sv = gdec * *sv + sacc[a][b];
-      }
-  }
-
+  lin -= rows * sh.nch * ntri;
+  const int npt = (sh.p + kB - 1) / kB, nnt = (sh.n + kB - 1) / kB;
+  const int ntile = lin % (npt * nnt);
+  const int hc = lin / (npt * nnt);   // bh * nch + c
+  const int bh = hc / sh.nch;
+  const int c0 = (hc % sh.nch) * sh.q;
+  const int qc = min(sh.q, sh.s - c0);
+  const int p0 = (ntile / nnt) * kB, n0 = (ntile % nnt) * kB;
+  chunk_scan<T>(da + (size_t)bh * sh.s + c0, dt + (size_t)bh * sh.s + c0, qc,
+                sm.dac, sm.dts);
   __syncthreads();
-  float* sb = st + (size_t)bh * p * n;
-  for (int idx = tid; idx < kPT * NW; idx += kThreads) {
-    const int r = idx / NW;
-    const int k = idx - r * NW;
-    if (p0 + r < p && k < n) sb[(size_t)(p0 + r) * n + k] = Ss[r * (NW + 1) + k];
-  }
+  const double dend = sm.dac[qc - 1];
+  for (int i = threadIdx.x; i < qc; i += kThreads)
+    sm.w[i] = sm.dts[i] * expf((float)(dend - sm.dac[i]));
+  if (ntile == 0 && threadIdx.x == 0) gdec[hc] = expf((float)dend);
+  const T* xb = x + ((size_t)bh * sh.s + c0) * sh.p;
+  const T* bb = bm + ((size_t)(bh / sh.g) * sh.s + c0) * sh.n;
+  gemm<true, true>(
+      (qc + kK - 1) / kK, sm.a, sm.b,
+      [&](int sl, int r, int k) {   // A[p][j] = w_j x_j[p]
+        const int j = sl * kK + k, pp = p0 + r;
+        return j < qc && pp < sh.p ? xb[(size_t)j * sh.p + pp] : zero;
+      },
+      [&](int sl, int, int k, T v) {   // w only below qc: no read past it
+        const int j = sl * kK + k;
+        return j < qc ? sm.w[j] * repro::to_float(v) : 0.f;
+      },
+      [&](int sl, int r, int k) {   // B[j][n] = B_j[n]
+        const int j = sl * kK + k, nn = n0 + r;
+        return j < qc && nn < sh.n ? bb[(size_t)j * sh.n + nn] : zero;
+      },
+      Widen{}, acc);
+  float* out = states + (size_t)hc * sh.p * sh.n;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pp = p0 + acc_row(e), nn = n0 + acc_col(t, e);
+      if (pp < sh.p && nn < sh.n) out[(size_t)pp * sh.n + nn] = acc[t][e];
+    }
 }
 
-template <typename T, int NW>
-int launch(const void* x, const void* b, const void* c, const void* dt,
-           const void* da, void* y, void* st, int bh, int s, int p, int n,
-           int chunk, int g, cudaStream_t stream) {
+// 2. the scan over chunks, per (head, p, n): states[c] becomes the state
+// entering chunk c; the state after the last chunk is the output
+__global__ void __launch_bounds__(kThreads)
+ssd_pass(float* __restrict__ states, const float* __restrict__ gdec,
+         float* __restrict__ st, Shape sh) {
+  const size_t pn = (size_t)sh.p * sh.n;
+  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (size_t)sh.bh * pn) return;
+  const size_t bh = idx / pn, e = idx - bh * pn;
+  float* cells = states + bh * sh.nch * pn + e;
+  const float* gd = gdec + bh * sh.nch;
+  float s = 0.f;
+  for (int c0 = 0; c0 < sh.nch; c0 += 8) {   // 8 chunks' loads in flight
+    float own[8], dec[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      own[u] = c0 + u < sh.nch ? cells[(c0 + u) * pn] : 0.f;
+      dec[u] = c0 + u < sh.nch ? gd[c0 + u] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (c0 + u < sh.nch) {
+        cells[(c0 + u) * pn] = s;
+        s = fmaf(dec[u], s, own[u]);
+      }
+  }
+  st[idx] = s;
+}
+
+// 3. y of a (head, chunk, 64-row tile, 64-column tile of P)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_out(const T* __restrict__ x, const T* __restrict__ cm,
+        const T* __restrict__ dt, const T* __restrict__ da,
+        const float* __restrict__ scores, const float* __restrict__ states,
+        T* __restrict__ y, Shape sh) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Smem sm = carve(smem, sh.q);
+  const int hc = blockIdx.x;   // bh * nch + c
+  const int bh = hc / sh.nch, c = hc % sh.nch;
+  const int c0 = c * sh.q;
+  const int qc = min(sh.q, sh.s - c0);
+  const int i0 = blockIdx.z * kB, p0 = blockIdx.y * kB;
+  if (i0 >= qc) return;
+  chunk_scan<T>(da + (size_t)bh * sh.s + c0, dt + (size_t)bh * sh.s + c0, qc,
+                sm.dac, sm.dts);
+  const T* cb = cm + ((size_t)(bh / sh.g) * sh.s + c0) * sh.n;
+  const T* xb = x + ((size_t)bh * sh.s + c0) * sh.p;
+  const T zero = repro::from_float<T>(0.f);
+  float acc[4][4];
+  zero_acc(acc);
+  if (c > 0) {   // exp(dacum_i) C_i S^T from the entering state
+    const float* sb = states + (size_t)hc * sh.p * sh.n;
+    gemm<false, false>(
+        (sh.n + kK - 1) / kK, sm.a, sm.b,
+        [&](int sl, int r, int k) {   // A[i][n] = C_i[n]
+          const int i = i0 + r, kk = sl * kK + k;
+          return i < qc && kk < sh.n ? cb[(size_t)i * sh.n + kk] : zero;
+        },
+        Widen{},
+        [&](int sl, int r, int k) {   // B[n][p] = S[p][n]
+          const int pp = p0 + r, kk = sl * kK + k;
+          return pp < sh.p && kk < sh.n ? sb[(size_t)pp * sh.n + kk] : 0.f;
+        },
+        Widen{}, acc);
+  }
+  __syncthreads();   // dac written (and the last slab's reads done)
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + acc_row(e);
+      acc[t][e] *= i < qc ? expf((float)sm.dac[i]) : 0.f;
+    }
+  const float* sc = scores + ((size_t)(bh / sh.g) * sh.nch + c) * sh.q * sh.q;
+  // within the chunk, key slabs up to the diagonal; the mask is applied
+  // before the exp (above the diagonal the exponent is large and positive)
+  gemm<false, true>(
+      (min(i0 + kB, qc) + kK - 1) / kK, sm.a, sm.b,
+      [&](int sl, int r, int k) {   // A[i][j] = scores, raw
+        const int i = i0 + r, j = sl * kK + k;
+        return j <= i && i < qc ? sc[(size_t)i * sh.q + j] : 0.f;
+      },
+      [&](int sl, int r, int k, float v) {   // decayed, times dt_j
+        const int i = i0 + r, j = sl * kK + k;
+        if (j > i || i >= qc) return 0.f;
+        return v * expf((float)(sm.dac[i] - sm.dac[j])) * sm.dts[j];
+      },
+      [&](int sl, int r, int k) {   // B[j][p] = x_j[p]
+        const int j = sl * kK + k, pp = p0 + r;
+        return j < qc && pp < sh.p ? xb[(size_t)j * sh.p + pp] : zero;
+      },
+      Widen{}, acc);
+  T* yb = y + ((size_t)bh * sh.s + c0) * sh.p;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + acc_row(e), pp = p0 + acc_col(t, e);
+      if (i < qc && pp < sh.p)
+        yb[(size_t)i * sh.p + pp] = repro::from_float<T>(acc[t][e]);
+    }
+}
+
+Shape shape_of(int bh, int s, int p, int n, int chunk, int g) {
   const int q = min(chunk, s);
-  const size_t smem = ssd_smem_bytes<NW>(q);
+  return {bh, s, p, n, q, g, (s + q - 1) / q};
+}
+
+int tri_tiles(int q) {
+  const int nt = (q + kB - 1) / kB;
+  return nt * (nt + 1) / 2;
+}
+
+template <typename T>
+int launch(const void* x, const void* b, const void* c, const void* dt,
+           const void* da, void* y, void* st, float* scratch, Shape sh,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(sh.q);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_fwd<T, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ssd_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        ssd_out<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(bh, (p + kPT - 1) / kPT);
-  ssd_fwd<T, NW><<<grid, kThreads, smem, stream>>>(
+  const int rows = sh.bh / sh.g;
+  float* scores = scratch;
+  float* states = scores + (size_t)rows * sh.nch * sh.q * sh.q;
+  float* gdec = states + (size_t)sh.bh * sh.nch * sh.p * sh.n;
+  const int ntri = tri_tiles(sh.q);
+  const int nsc = rows * sh.nch * ntri;
+  const int nst = sh.bh * sh.nch * ((sh.p + kB - 1) / kB) *
+                  ((sh.n + kB - 1) / kB);
+  ssd_chunk<T><<<nsc + nst, kThreads, smem, stream>>>(
       (const T*)x, (const T*)b, (const T*)c, (const T*)dt, (const T*)da,
-      (T*)y, (float*)st, s, p, n, q, g);
+      scores, states, gdec, sh, ntri);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const size_t elems = (size_t)sh.bh * sh.p * sh.n;
+  ssd_pass<<<(unsigned)((elems + kThreads - 1) / kThreads), kThreads, 0,
+             stream>>>(states, gdec, (float*)st, sh);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  dim3 grid(sh.bh * sh.nch, (sh.p + kB - 1) / kB, (sh.q + kB - 1) / kB);
+  ssd_out<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)x, (const T*)c, (const T*)dt, (const T*)da, scores, states,
+      (T*)y, sh);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_n(const void* x, const void* b, const void* c, const void* dt,
-             const void* da, void* y, void* st, int bh, int s, int p, int n,
-             int chunk, int g, cudaStream_t stream) {
-  if (n <= 64)
-    return launch<T, 64>(x, b, c, dt, da, y, st, bh, s, p, n, chunk, g,
-                         stream);
-  if (n <= 128)
-    return launch<T, 128>(x, b, c, dt, da, y, st, bh, s, p, n, chunk, g,
-                          stream);
-  if (n <= 256)
-    return launch<T, 256>(x, b, c, dt, da, y, st, bh, s, p, n, chunk, g,
-                          stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// floats of the work buffer: the scores [rows, chunks, Q, Q], the chunk
+// states [BH, chunks, P, N] and exp(dacum_end) [BH, chunks]
+extern "C" long long ssd_scan_scratch_floats(int bh, int s, int p, int n,
+                                             int chunk, int g) {
+  if (bh <= 0 || s <= 0 || chunk <= 0 || g <= 0) return 0;
+  const Shape sh = shape_of(bh, s, p, n, chunk, g);
+  return (long long)(bh / g) * sh.nch * sh.q * sh.q +
+         (long long)bh * sh.nch * ((long long)p * n + 1);
+}
+
 extern "C" int ssd_scan_launch(const void* x, const void* b, const void* c,
                                const void* dt, const void* da, void* y,
-                               void* st, int bh, int s, int p, int n,
-                               int chunk, int g, int dtype, void* stream) {
+                               void* st, float* scratch, int bh, int s, int p,
+                               int n, int chunk, int g, int dtype,
+                               void* stream) {
   if (bh <= 0 || p <= 0) return 0;
   if (s < 0 || n <= 0 || chunk <= 0 || g <= 0 || bh % g != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t strm = (cudaStream_t)stream;
+  if (s == 0)   // no step: the state stays h_0 = 0
+    return (int)cudaMemsetAsync(st, 0, (size_t)bh * p * n * sizeof(float),
+                                strm);
+  const Shape sh = shape_of(bh, s, p, n, chunk, g);
   if (dtype == repro::kFloat32)
-    return launch_n<float>(x, b, c, dt, da, y, st, bh, s, p, n, chunk, g,
-                           strm);
+    return launch<float>(x, b, c, dt, da, y, st, scratch, sh, strm);
   if (dtype == repro::kBFloat16)
-    return launch_n<__nv_bfloat16>(x, b, c, dt, da, y, st, bh, s, p, n,
-                                   chunk, g, strm);
+    return launch<__nv_bfloat16>(x, b, c, dt, da, y, st, scratch, sh, strm);
   return (int)cudaErrorInvalidValue;
 }

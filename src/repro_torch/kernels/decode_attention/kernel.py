@@ -7,20 +7,50 @@ that.
 """
 from __future__ import annotations
 
+import functools
+from typing import Dict, Tuple
+
 import torch
 
 from repro_torch.kernels import library
 
-MIN_CHUNK = 64     # cache positions per split, at the most splits
+CLUSTER = 8        # blocks merged through distributed shared memory
+MIN_CHUNK = 8      # cache positions per split, at the most splits
+MAX_SPLITS = 256   # 32 clusters: the kernel's last merge holds 32 partials
 
 
-def num_splits(device: torch.device, batch: int, hkv: int, smax: int) -> int:
-    """Splits of the cache: about two blocks per SM over all (batch, KV head)
-    pairs, but no split shorter than MIN_CHUNK positions of a full cache.
-    Chosen from shapes only, so the launch needs no host sync on kv_len."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // max(1, batch * hkv))
-    return max(1, min(want, -(-smax // MIN_CHUNK)))
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (looked up once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def num_splits(sms: int, batch: int, hkv: int, smax: int) -> int:
+    """Splits of the cache per (batch, KV head): about one block per SM over
+    all (batch, KV head) pairs, in whole clusters of CLUSTER blocks, but no
+    split shorter than MIN_CHUNK positions of a full cache (beyond one
+    cluster) and at most MAX_SPLITS. Chosen from shapes only, so the launch needs no host sync on
+    kv_len."""
+    want = -(-sms // max(1, batch * hkv))
+    want = -(-want // CLUSTER) * CLUSTER
+    cap = max(CLUSTER, smax // MIN_CHUNK // CLUSTER * CLUSTER)
+    return min(want, cap, MAX_SPLITS)
+
+
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, stream: int, rows: int
+                     ) -> torch.Tensor:
+    """The kernel's arrival counters (int32, zeroed; the kernel leaves them
+    zeroed), one buffer per (device, stream), so that calls that may run at
+    once never share one. Grows when a call has more rows."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(max(rows, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,17 +77,20 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)}")
     scale = dh ** -0.5
     lib = library.library()
-    nsplit = num_splits(q.device, b, hkv, smax)
+    nsplit = num_splits(sm_count(q.device.index), b, hkv, smax)
     scratch = torch.empty(
-        lib.decode_attention_scratch_floats(b, hq, dh, nsplit),
+        lib.decode_attention_scratch_floats(b, hq, hkv, dh, nsplit),
         dtype=torch.float32, device=q.device)
+    stream = library.stream_of(q)
+    counters = arrival_counters(q.device, stream,
+                                lib.decode_attention_rows(b, hq, hkv))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         library.launch("decode_attention_launch", q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                       scratch.data_ptr(), b, smax, hq, hkv, dh, nsplit,
-                       int(window), float(scale), library.DTYPE_CODES[q.dtype],
-                       library.stream_of(q))
+                       scratch.data_ptr(), counters.data_ptr(), b, smax, hq,
+                       hkv, dh, nsplit, int(window), float(scale),
+                       library.DTYPE_CODES[q.dtype], stream)
     decode_attention_fwd.launches += 1
     return out
 

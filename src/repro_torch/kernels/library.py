@@ -43,10 +43,11 @@ _SIGNATURES = {
     "flash_attention_launch": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "decode_attention_launch": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-        _I),
-    "decode_attention_scratch_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "ssd_scan_launch": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        [_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
+    "decode_attention_scratch_floats": ([_I] * 5, ctypes.c_longlong),
+    "decode_attention_rows": ([_I] * 3, _I),
+    "ssd_scan_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "ssd_scan_scratch_floats": ([_I] * 6, ctypes.c_longlong),
     "rglru_scan_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }

@@ -38,13 +38,16 @@ def ssd_scan_fwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
             f"ssd_scan: bad shapes x {tuple(x.shape)} B {tuple(bmat.shape)} "
             f"dt {tuple(dt.shape)} da {tuple(da.shape)} (heads_per_bc {g}, "
             f"chunk {chunk}, N <= {MAX_STATE})")
+    lib = library.library()
     y = torch.empty_like(x)
     state = torch.empty((bh, p, n), dtype=torch.float32, device=x.device)
+    work = torch.empty(lib.ssd_scan_scratch_floats(bh, s, p, n, int(chunk), g),
+                       dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         library.launch("ssd_scan_launch", x.data_ptr(), bmat.data_ptr(),
                        cmat.data_ptr(), dt.data_ptr(), da.data_ptr(),
-                       y.data_ptr(), state.data_ptr(), bh, s, p, n,
-                       int(chunk), g, library.DTYPE_CODES[x.dtype],
+                       y.data_ptr(), state.data_ptr(), work.data_ptr(), bh, s,
+                       p, n, int(chunk), g, library.DTYPE_CODES[x.dtype],
                        library.stream_of(x))
     ssd_scan_fwd.launches += 1
     return y, state

@@ -130,6 +130,45 @@ def test_decode_kernel_equals_plain(dev, b, smax, hq, hkv, dh, kv_len,
     _assert_close(got, want)
 
 
+@pytest.mark.parametrize("smax,hq,hkv,dh,kv_len,window", [
+    (4096, 14, 2, 64, 1, 0),        # far more splits than live positions
+    (4096, 14, 2, 64, 5, 0),
+    (4096, 16, 1, 256, 5, 0),
+    (4096, 16, 1, 256, 3000, 2048),
+    (2048, 16, 1, 256, 2048, 0),    # 16 query heads over one KV head
+    (64, 40, 2, 96, 37, 0),         # 20 heads per KV head: two head groups
+    (300, 4, 2, 100, 250, 0),       # rows not whole 16-byte copies
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_split_edges(dev, smax, hq, hkv, dh, kv_len, window,
+                                   dtype):
+    """Splits past the live positions write empty partials; the merge of
+    the clusters' partials keeps every head of a KV head."""
+    rng = np.random.default_rng(kv_len + hq)
+    q = _randn(rng, (1, 1, hq, dh), dtype, dev)
+    k, v = (_randn(rng, (1, smax, hkv, dh), dtype, dev) for _ in range(2))
+    kvl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    got = decode_attention_fwd(q, k, v, kvl, window)
+    want = decode_attention_ref(q, k, v, kvl, window)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+def test_decode_kernel_repeats_bit_identical(dev):
+    """100 calls back to back give the same bits: the arrival counters are
+    left zeroed by every call, and the merge order does not depend on which
+    cluster arrives last."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (1, 1, 16, 256), torch.bfloat16, dev)
+    k, v = (_randn(rng, (1, 2048, 1, 256), torch.bfloat16, dev)
+            for _ in range(2))
+    kvl = torch.tensor([1001], dtype=torch.int32, device=dev)
+    outs = [decode_attention_fwd(q, k, v, kvl) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    _assert_close(outs[0], decode_attention_ref(q, k, v, kvl))
+
+
 @pytest.mark.parametrize("bh,s,p,n,chunk,g,dtype,slow", [
     (64, 1000, 64, 128, 256, 64, torch.float32, False),   # mamba2 prefill
     (64, 1031, 64, 128, 256, 64, torch.float32, False),   # ragged
@@ -140,6 +179,8 @@ def test_decode_kernel_equals_plain(dev, b, smax, hq, hkv, dh, kv_len,
     (1, 64, 128, 16, 64, 1, torch.float32, False),        # shapes
     (2, 300, 48, 256, 128, 2, torch.float32, True),       # N 256, P 48
     (3, 10, 8, 16, 256, 3, torch.bfloat16, False),        # S < chunk
+    (4, 1024, 64, 128, 256, 1, torch.float32, True),      # g 1, 4 chunks
+    (2, 1000, 72, 100, 256, 1, torch.bfloat16, False),    # P, N past a tile
 ])
 def test_ssd_scan_kernel_equals_plain(dev, bh, s, p, n, chunk, g, dtype,
                                       slow):

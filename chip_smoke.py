@@ -35,7 +35,9 @@ Phases, each printing JSON lines:
      its bound (the RG-LRU scan's times with L2 flushed before each call, so
      that they are held against the HBM bound they are compared with; the
      decode attention's and SSD scan's both back to back and flushed, beside
-     SDPA's in the same two modes), then one ``{"kernels": [...]}`` line:
+     SDPA's in the same two modes; the fp32 SSD scan and flash attention
+     held against three TF32 products per product, their route, with the
+     fp32-FMA bound beside it), then one ``{"kernels": [...]}`` line:
      one entry per kernel and model that launches it, with that serve run's
      launches and the device times of the kernel and of its library call.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises:
@@ -101,8 +103,8 @@ RGLRU_REL_TOL = 1e-4
 # decode copy); a second fp32 copy during the cast would pass this
 HYBRID_MAX_PEAK_BYTES = 56e9
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W);
-# "tf32" is the tensor cores' TF32 rate, which the SSD scan's 3xTF32
-# products run at
+# "tf32" is the tensor cores' TF32 rate, which the 3xTF32 products of the
+# SSD scan and of the fp32 flash attention run at
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12,
             "tf32": 495e12}
@@ -538,9 +540,24 @@ def _flash_case(dev, s, hq, hkv, dh, dtype, rng, window=0, arch=None):
            "library_ms": time_ms(lib, 50)}
     row["device_ms"] = device_ms(fa)
     row["library_device_ms"] = device_ms(lib)
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    row.update(_bound(nbytes, 4.0 * flash_pairs(s, window) * dh * hq, dtype))
+    row.update(flash_bound(s, hq, hkv, dh, dtype, window))
     return row
+
+
+def flash_bound(s, hq, hkv, dh, dtype, window=0) -> dict:
+    """Bound of a causal flash attention over S positions (batch 1): 4 dh Hq
+    operations per visible (query, key) pair; q, k, v read and o written
+    once. fp32 runs on the kernel's route, three TF32 products per product
+    at the tensor cores' TF32 rate, with the bound of the same work on fp32
+    FMAs beside it (``bound_before_ms``, what earlier readings were held
+    against); bf16 at its tensor rate."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elt * 2 * s * dh * (hq + hkv)
+    ops = 4.0 * flash_pairs(s, window) * dh * hq
+    if dtype != torch.float32:
+        return _bound(nbytes, ops, dtype)
+    return {**_bound(nbytes, 3.0 * ops, "tf32"), "useful_ops": ops,
+            "bound_before_ms": _bound(nbytes, ops, dtype)["bound_ms"]}
 
 
 def _decode_case(dev, smax, hq, hkv, dh, kv_len, dtype, rng, window=0,
@@ -814,6 +831,7 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
+                    "bound_before_ms": r.get("bound_before_ms"),
                     "library_ms": r["library_ms"],
                     "device_ms": r["device_ms"],
                     "library_device_ms": r.get("library_device_ms")})

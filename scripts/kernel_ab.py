@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""Times the decode attention and SSD scan kernels of one checkout at the
-serve path's shapes, so that two checkouts can be compared on one card.
+"""Times the flash attention, decode attention and SSD scan kernels of one
+checkout at the serve path's shapes, so that two checkouts can be compared
+on one card.
 
     python scripts/kernel_ab.py --root DIR [--label NAME]
 
 Loads ``DIR/chip_smoke.py``, which puts ``DIR/src`` first on the import
-path, and times that checkout's ``decode_attention_fwd`` (bf16: qwen2-0.5b's
+path, and times that checkout's ``flash_attention_fwd`` (causal prefill:
+qwen2-0.5b's q [1,1000,14,64] in fp32 and in bf16, the bf16 row with
+SDPA's device time beside it; recurrentgemma-9b's q [1,S,16,256] against
+one KV head, fp32, window 2048, at S 1000 and at S 4096 where the window
+bites), ``decode_attention_fwd`` (bf16: qwen2-0.5b's
 cache at kv_len 1000; recurrentgemma-9b's ring of 2048 at kv_len 1001 and
 full; a linear cache of 4096 at kv_len 3000 with window 2048) and
 ``ssd_scan_fwd`` (mamba2-1.3b's prefill: S 1000 fp32, ragged S 1031, bf16,
@@ -26,6 +31,13 @@ import time
 import numpy as np
 import torch
 
+FLASH = [  # (case, s, hq, hkv, dh, dtype, window)
+    ("qwen2 fp32", 1000, 14, 2, 64, torch.float32, 0),
+    ("recurrentgemma fp32 S 1000", 1000, 16, 1, 256, torch.float32, 2048),
+    ("recurrentgemma fp32 S 4096 window biting", 4096, 16, 1, 256,
+     torch.float32, 2048),
+    ("qwen2 bf16", 1000, 14, 2, 64, torch.bfloat16, 0),
+]
 DECODE = [  # (case, smax, hq, hkv, dh, kv_len, window)
     ("qwen2 kv_len 1000", 4096, 14, 2, 64, 1000, 0),
     ("ring kv_len 1001", 2048, 16, 1, 256, 1001, 0),
@@ -93,6 +105,30 @@ def main() -> None:
         torch.cuda.synchronize()
     rng = np.random.default_rng(0)
     label = args.label or os.path.abspath(args.root)
+    for case, s, hq, hkv, dh, dtype, window in FLASH:
+        q, k, v = (torch.as_tensor(rng.standard_normal((1, s, h, dh)),
+                                   dtype=torch.float32, device=dev).to(dtype)
+                   for h in (hq, hkv, hkv))
+
+        def fa():
+            return mod.flash_attention_fwd(q, k, v, causal=True,
+                                           window=window)
+
+        ref = mod.flash_attention_ref(q, k, v, causal=True, window=window)
+        tol = 1e-4 + (2.0 ** -7 * ref.float().abs()
+                      if dtype == torch.bfloat16 else 0.0)
+        row = {"label": label, "kernel": "flash_attention", "case": case,
+               "err_over_tol": float(((fa().float() - ref.float()).abs()
+                                      / tol).max()),
+               "ms": mod.time_ms(fa, 50),
+               "device_ms": profiled_ms(mod, fa, 20, False)}
+        if dtype == torch.bfloat16:   # the yardstick: SDPA, causal, GQA
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["library_device_ms"] = profiled_ms(
+                mod, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                  enable_gqa=True), 20, False)
+        print(json.dumps(row), flush=True)
     for case, smax, hq, hkv, dh, kv_len, window in DECODE:
         q = torch.as_tensor(rng.standard_normal((1, 1, hq, dh)),
                             dtype=torch.float32, device=dev).bfloat16()

@@ -70,18 +70,9 @@ constexpr int kMaxCl = 32;     // clusters per row at most (nsplit <= 256)
 // two per thread at most
 constexpr int kItems = kGMax * 256 / kCluster / 256;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 // release (after the partials are written) or acquire (before they are
 // read) at device scope; lighter than __threadfence's sequential fence

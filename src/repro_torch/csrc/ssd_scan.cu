@@ -67,21 +67,8 @@ constexpr size_t kMaxSmem = 232448;
 
 static_assert(kB * kLdM == kK * kLdK, "planes of one size");
 
-__device__ __forceinline__ unsigned tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a b, a 16 x 8 (row), b 8 x 8 (col), TF32 in, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using repro::mma_tf32;
+using repro::tf32;
 
 // A slab operand in shared memory: the TF32 high parts and remainders of a
 // 64 x 32 tile. K-major: [k][72] (global rows along k, contiguous along m or

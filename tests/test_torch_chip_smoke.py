@@ -87,6 +87,31 @@ def test_serve_launch_counts_of_the_full_configs(chip_smoke, arch, want):
     assert chip_smoke.SERVE_LAUNCHES[cfg.family](cfg, 8, 32) == want
 
 
+@pytest.mark.parametrize("s,hq,hkv,dh,window", [
+    (1000, 14, 2, 64, 0),           # qwen2-0.5b's prefill
+    (1000, 16, 1, 256, 2048),       # recurrentgemma-9b's, window not biting
+    (4096, 16, 1, 256, 2048),       # window biting
+])
+def test_flash_bound_counts_3xtf32_products(chip_smoke, s, hq, hkv, dh,
+                                            window):
+    """The fp32 flash rows' bound: 3x the pair operations at the TF32 rate
+    (the kernel's route), with the fp32-FMA bound as ``bound_before_ms``;
+    bf16 at its own rate. Operations bind at these shapes."""
+    pairs = chip_smoke.flash_pairs(s, window)
+    assert pairs == (s * (s + 1) // 2 if not window or s <= window else
+                     window * (window + 1) // 2 + (s - window) * window)
+    ops = 4.0 * pairs * dh * hq
+    b = chip_smoke.flash_bound(s, hq, hkv, dh, torch.float32, window)
+    assert b["bound_by"] == "operations" and b["useful_ops"] == ops
+    assert b["ops"] == 3.0 * ops
+    assert b["bound_ms"] == pytest.approx(3.0 * ops / 495e12 * 1e3)
+    assert b["bound_before_ms"] == pytest.approx(ops / 67e12 * 1e3)
+    assert b["bytes"] == 4 * 2 * s * dh * (hq + hkv)
+    bf = chip_smoke.flash_bound(s, hq, hkv, dh, torch.bfloat16, window)
+    assert bf["bound_ms"] == pytest.approx(ops / 989e12 * 1e3)
+    assert "bound_before_ms" not in bf
+
+
 def test_claim_phase_on_cpu(chip_smoke):
     res = chip_smoke.phase_claim("cpu", tasks=3000, workers=16, rounds=2)
     assert res["equal_to_host_path"] and res["tasks_claimed"] == 16 * 2 * 5

@@ -89,6 +89,24 @@ def test_wq_claim_kernel_equals_plain(dev, n, w, k):
     # past 2048 positions)
     (1, 1000, 16, 1, 256, True, 2048, torch.float32),
     (1, 2100, 16, 1, 256, True, 2048, torch.float32),
+    # an odd query-tile count (17 tiles: the middle tile alone) and short S
+    (1, 1031, 4, 2, 64, True, 0, torch.float32),
+    (1, 1031, 4, 1, 256, True, 0, torch.bfloat16),
+    (1, 1, 4, 1, 256, True, 0, torch.float32),
+    (1, 17, 4, 2, 64, True, 0, torch.bfloat16),
+    (1, 65, 4, 2, 64, True, 0, torch.float32),
+    (2, 300, 6, 6, 64, True, 0, torch.float32),     # B 2, Hq = Hkv
+    (2, 300, 6, 6, 64, True, 0, torch.bfloat16),
+    (1, 257, 4, 2, 112, True, 0, torch.bfloat16),
+    (1, 257, 4, 2, 128, True, 0, torch.float32),
+    (1, 257, 4, 2, 128, True, 0, torch.bfloat16),
+    # the window's edge exactly at a tile edge
+    (1, 2112, 4, 1, 256, True, 2048, torch.float32),
+    (1, 2112, 4, 1, 64, True, 2048, torch.bfloat16),
+    (1, 500, 4, 2, 256, False, 0, torch.bfloat16),  # not causal
+    # rows that are not whole 16-byte copies: staged element by element
+    (1, 130, 4, 2, 50, True, 0, torch.float32),
+    (1, 300, 4, 2, 100, True, 0, torch.bfloat16),
 ])
 def test_flash_kernel_equals_plain(dev, b, s, hq, hkv, dh, causal, window,
                                    dtype):
@@ -100,6 +118,19 @@ def test_flash_kernel_equals_plain(dev, b, s, hq, hkv, dh, causal, window,
     torch.cuda.synchronize()
     assert got.dtype == dtype
     _assert_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_repeats_bit_identical(dev, dtype):
+    """20 back-to-back calls at qwen2-0.5b's prefill shape give the same
+    bits: no atomics, and the order of every sum is fixed."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (1, 1000, 14, 64), dtype, dev)
+    k, v = (_randn(rng, (1, 1000, 2, 64), dtype, dev) for _ in range(2))
+    first = flash_attention_fwd(q, k, v)
+    outs = [flash_attention_fwd(q, k, v) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
 
 
 @pytest.mark.parametrize("b,smax,hq,hkv,dh,kv_len,dtype", [

@@ -322,7 +322,7 @@ def phase_serve_profile(ex, *, prompt_len=1000, max_new=9, seed=2) -> dict:
         ex.drain()
         sync(ex.device)
     wall = time.perf_counter() - t0
-    by_name = _device_kernel_us(prof)
+    by_name = {name: us for name, (us, _) in _device_kernels(prof).items()}
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     res = {"phase": "serve_profile", "arch": ex.cfg.name,
@@ -410,27 +410,42 @@ def time_ms(fn, iters: int, warmup: int = 3, cold: bool = False) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_kernel_us(prof) -> dict:
-    """Device time (us) of every CUDA kernel / memory op a profile holds,
-    by name (empty when the profiler recorded no device activity)."""
-    return {e.key: e.self_device_time_total for e in prof.key_averages()
+def _device_kernels(prof) -> dict:
+    """Device time (us) and record count of every CUDA kernel / memory op a
+    profile holds, by name (empty when the profiler recorded no device
+    activity)."""
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0}
 
 
-def _profile_us(body, tries: int = 3) -> dict:
-    """Device time by kernel name of ``body`` under torch.profiler; a
-    profile that came back without any device activity is taken again (up
-    to ``tries`` times in all), as that happens now and then on the card."""
+def _profile(body, tries: int = 3) -> dict:
+    """:func:`_device_kernels` of ``body`` under torch.profiler; a profile
+    that came back without any device activity is taken again (up to
+    ``tries`` times in all), as that happens now and then on the card."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             body()
             torch.cuda.synchronize()
-        found = _device_kernel_us(prof)
+        found = _device_kernels(prof)
         if found:
             break
     return found
+
+
+def per_call_us(kernels: dict, calls: int) -> dict:
+    """Device us per call of each kernel in :func:`_profile` of ``calls``
+    calls: its mean record times the records one call makes. A profile
+    taken after others in the same process can lack a few of a kernel's
+    records (one of 20 after a profile of 40,000 kernels, about five of 20
+    late in this script, on an H100), while the records it holds are
+    whole; summing them read up to a quarter low. Each kernel runs the same
+    number of times every call, and fewer than ``calls`` of its records
+    are lost."""
+    return {name: us / n * -(-n // calls)
+            for name, (us, n) in kernels.items()}
 
 
 def device_ms(fn, iters: int = 20, cold: bool = False):
@@ -443,7 +458,7 @@ def device_ms(fn, iters: int = 20, cold: bool = False):
     activity."""
     fn()
     torch.cuda.synchronize()
-    flush = set(_profile_us(flush_l2)) if cold else set()
+    flush = set(_profile(flush_l2)) if cold else set()
 
     def body():
         for _ in range(iters):
@@ -451,13 +466,12 @@ def device_ms(fn, iters: int = 20, cold: bool = False):
                 flush_l2()
             fn()
 
-    # the median of three profiles: now and then a profile misses part of
-    # the kernels it should hold
+    # the median of three profiles
     totals = sorted(
-        sum(us for name, us in _profile_us(body).items()
+        sum(us for name, us in per_call_us(_profile(body), iters).items()
             if not (cold and (name in flush or "reduce_kernel" in name)))
         for _ in range(3))
-    return totals[1] / iters / 1e3 if totals[1] else None
+    return totals[1] / 1e3 if totals[1] else None
 
 
 def _bound(nbytes: float, ops: float, dtype) -> dict:
@@ -831,7 +845,6 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    "bound_before_ms": r.get("bound_before_ms"),
                     "library_ms": r["library_ms"],
                     "device_ms": r["device_ms"],
                     "library_device_ms": r.get("library_device_ms")})

@@ -90,8 +90,8 @@ def device_us(fn, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
 
-    return sum(us for name, us in chip_smoke._profile_us(body).items()
-               if "dec_fwd" in name) / iters
+    return sum(us for name, us in chip_smoke.per_call_us(
+        chip_smoke._profile(body), iters).items() if "dec_fwd" in name)
 
 
 def main() -> None:

@@ -17,8 +17,11 @@ full; a linear cache of 4096 at kv_len 3000 with window 2048) and
 slow decay at S 4096). Each case prints one JSON line: CUDA-event ms over
 back-to-back calls, and the kernels' device time (torch.profiler) back to
 back (warm: inputs stay in L2) and with L2 flushed before each call (cold).
-Run one checkout per process (the package is imported once), in turns:
-parent, change, change, parent.
+Both are read by the timers of the ``chip_smoke.py`` beside this script,
+whichever checkout is timed, so that two checkouts are read alike; the
+flash rows' error against the plain version is the timed checkout's own
+check. Run one checkout per process (the package is imported once), in
+turns: parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import argparse
 import importlib.util
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -52,41 +56,28 @@ SSD = [  # (case, seq, dtype, slow decay)
 ]
 
 
-def load(root: str):
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load(root: str, name: str):
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke_ab", os.path.join(root, "chip_smoke.py"))
+        name, os.path.join(root, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def profiled_ms(mod, fn, iters: int, cold: bool) -> float:
-    """Mean device ms per call of ``fn``'s kernels; ``cold``: each call
-    after the checkout's L2 flush, whose own kernels are left out."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def run(body):   # a profile without device activity is taken again
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                body()
-                torch.cuda.synchronize()
-            found = mod._device_kernel_us(prof)
-            if found:
-                return found
-        return found
-
-    def body():
-        for _ in range(iters):
-            if cold:
-                mod.flush_l2()
-            fn()
-
-    fn()
-    torch.cuda.synchronize()
-    flush = set(run(mod.flush_l2)) if cold else set()
-    return sum(us for k, us in run(body).items()
-               if not (cold and (k in flush or "reduce_kernel" in k))) \
-        / iters / 1e3
+def load_checkout(root: str):
+    """(the checkout's chip_smoke module, this one's for its timers). The
+    timers use no part of the package, which is then imported anew from
+    ``root``."""
+    timer = load(HERE, "chip_smoke_timer")
+    if os.path.realpath(root) == os.path.realpath(HERE):
+        return timer, timer
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    return load(root, "chip_smoke_ab"), timer
 
 
 def main() -> None:
@@ -94,7 +85,7 @@ def main() -> None:
     ap.add_argument("--root", required=True)
     ap.add_argument("--label", default="")
     args = ap.parse_args()
-    mod = load(args.root)
+    mod, timer = load_checkout(args.root)
     dev = torch.device("cuda", 0)
     # two seconds of matrix products first, so that the clocks have risen
     # before the first case is timed
@@ -115,19 +106,17 @@ def main() -> None:
                                            window=window)
 
         ref = mod.flash_attention_ref(q, k, v, causal=True, window=window)
-        tol = 1e-4 + (2.0 ** -7 * ref.float().abs()
-                      if dtype == torch.bfloat16 else 0.0)
+        err = mod._attn_error(fa(), ref, f"flash {case}")
         row = {"label": label, "kernel": "flash_attention", "case": case,
-               "err_over_tol": float(((fa().float() - ref.float()).abs()
-                                      / tol).max()),
-               "ms": mod.time_ms(fa, 50),
-               "device_ms": profiled_ms(mod, fa, 20, False)}
+               "err_over_tol": err["err_over_tol"],
+               "ms": timer.time_ms(fa, 50),
+               "device_ms": timer.device_ms(fa, 20)}
         if dtype == torch.bfloat16:   # the yardstick: SDPA, causal, GQA
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            row["library_device_ms"] = profiled_ms(
-                mod, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                  enable_gqa=True), 20, False)
+            row["library_device_ms"] = timer.device_ms(
+                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                20)
         print(json.dumps(row), flush=True)
     for case, smax, hq, hkv, dh, kv_len, window in DECODE:
         q = torch.as_tensor(rng.standard_normal((1, 1, hq, dh)),
@@ -144,9 +133,10 @@ def main() -> None:
             q, k, v, kvl, window).float()).abs().max())
         print(json.dumps({"label": label, "kernel": "decode_attention",
                           "case": case, "max_abs_err": err,
-                          "ms": mod.time_ms(fn, 200),
-                          "device_ms": profiled_ms(mod, fn, 50, False),
-                          "device_ms_cold": profiled_ms(mod, fn, 50, True)}),
+                          "ms": timer.time_ms(fn, 200),
+                          "device_ms": timer.device_ms(fn, 50),
+                          "device_ms_cold": timer.device_ms(fn, 50,
+                                                            cold=True)}),
               flush=True)
     for case, s, dtype, slow in SSD:
         xs = mod.ssd_inputs(rng, 64, s, 64, 128, 64, slow=slow, dtype=dtype,
@@ -156,9 +146,10 @@ def main() -> None:
             return mod.ssd_scan_fwd(*xs, chunk=256, heads_per_bc=64)
 
         print(json.dumps({"label": label, "kernel": "ssd_scan", "case": case,
-                          "ms": mod.time_ms(fn, 20),
-                          "device_ms": profiled_ms(mod, fn, 20, False),
-                          "device_ms_cold": profiled_ms(mod, fn, 20, True)}),
+                          "ms": timer.time_ms(fn, 20),
+                          "device_ms": timer.device_ms(fn, 20),
+                          "device_ms_cold": timer.device_ms(fn, 20,
+                                                            cold=True)}),
               flush=True)
 
 

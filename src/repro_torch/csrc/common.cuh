@@ -54,7 +54,9 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// TF32 bits of x, rounded to nearest with ties away from zero
+// TF32 bits of x, rounded to nearest with ties away from zero (the SSD
+// scan's split; flash attention splits on the FMA pipe instead, since
+// cvt.rna issues at a quarter rate: split_a / split_b there)
 __device__ __forceinline__ unsigned tf32(float x) {
   unsigned r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));

@@ -112,6 +112,17 @@ def test_flash_bound_counts_3xtf32_products(chip_smoke, s, hq, hkv, dh,
     assert "bound_before_ms" not in bf
 
 
+def test_per_call_us_counts_lost_records(chip_smoke):
+    """A kernel's device time per call is its mean record times the records
+    one call makes, so a profile that lost a few records reads as a whole
+    one (a kernel launched once and one launched twice a call)."""
+    whole = {"fa": (1400.0, 20), "two": (800.0, 40)}
+    lossy = {"fa": (1330.0, 19), "two": (600.0, 30)}
+    for kernels in (whole, lossy):
+        assert chip_smoke.per_call_us(kernels, 20) == pytest.approx(
+            {"fa": 70.0, "two": 40.0})
+
+
 def test_claim_phase_on_cpu(chip_smoke):
     res = chip_smoke.phase_claim("cpu", tasks=3000, workers=16, rounds=2)
     assert res["equal_to_host_path"] and res["tasks_claimed"] == 16 * 2 * 5

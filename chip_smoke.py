@@ -27,13 +27,18 @@ Phases, each printing JSON lines:
      model runs under the profiler;
   3. claim: a 936-worker work queue of 100,000 tasks claims through the
      ``wq_claim`` kernel, and must return the claim dicts of the host path;
+     each claim_all's wall ms, on the device path and the host path, and
+     the kernel's device time in one more device claim_all;
   4. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (``ssd_scan`` and ``rglru_scan`` also at a
      ragged length, in bf16, and in a slow-decay case where the state
      carried across chunks dominates the output; the attention kernels also
      at recurrentgemma-9b's shapes, windowed), with its error, its time and
      its bound (the RG-LRU scan's times with L2 flushed before each call, so
-     that they are held against the HBM bound they are compared with; the
+     that they are held against the HBM bound they are compared with, and
+     back to back beside them; the claim kernel's beside an empty kernel
+     launched as it is launched, the floor of one launch, with the
+     operations a call puts on the card by the profiler: one kernel; the
      decode attention's and SSD scan's both back to back and flushed, beside
      SDPA's in the same two modes; the fp32 SSD scan and flash attention
      held against three TF32 products per product, their route, with the
@@ -72,6 +77,7 @@ from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.wq_claim.kernel import empty_launch as wq_claim_empty_launch  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
 from repro_torch.launch.steps import copy_params  # noqa: E402
@@ -340,15 +346,25 @@ def phase_claim(device, *, tasks=100_000, workers=936, rounds=3) -> dict:
     """Device-claim queue against the host-claim queue on the same inserts
     and claims (the host claim bench's store: one activity, round-robin
     partitions); the launch count is this phase's alone."""
+    on_card = torch.device(device).type == "cuda"
     reset_launch_counts()
     claimed = 0
+    wall_ms = {"device": [], "host": []}   # claim_all, per round
+
+    def timed(q, kind, k, now):
+        t0 = time.perf_counter()
+        out = q.claim_all(k=k, now=now)   # the device path ends in a copy
+        wall_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
     for k in (1, 4):
         qs = [WorkQueue(num_workers=workers, capacity=2 * tasks,
                         device_claim=dc, device=device) for dc in (True, False)]
         for q in qs:
             q.add_tasks(0, tasks)
         for r in range(rounds):
-            got, want = (q.claim_all(k=k, now=float(r)) for q in qs)
+            got = timed(qs[0], "device", k, float(r))
+            want = timed(qs[1], "host", k, float(r))
             check(got.keys() == want.keys(), "claim dict keys")
             check(all(np.array_equal(got[w], want[w]) for w in want),
                   f"claim dicts differ (k={k}, round {r})")
@@ -357,14 +373,29 @@ def phase_claim(device, *, tasks=100_000, workers=936, rounds=3) -> dict:
                              qs[1].store.col("status")), "status columns")
         qs[0].check_invariants()
     launches = launch_counts()["wq_claim"]
-    if torch.device(device).type == "cuda":
+    if on_card:
         check(launches == 2 * rounds,
               f"wq_claim launches {launches} != {2 * rounds}")
     res = {"phase": "claim", "tasks": tasks, "workers": workers,
            "rounds_per_k": rounds, "tasks_claimed": claimed,
-           "equal_to_host_path": True, "launches": {"wq_claim": launches}}
+           "equal_to_host_path": True, "launches": {"wq_claim": launches},
+           "claim_all_wall_ms": wall_ms,
+           "kernel_device_ms": claim_all_kernel_ms(tasks, workers, device)
+           if on_card else None}
     emit(res)
     return res
+
+
+def claim_all_kernel_ms(tasks: int, workers: int, device) -> float:
+    """Device ms of the claim kernel in one more device-claim claim_all (a
+    fresh queue of the phase's store, k 1, under torch.profiler), read
+    after the phase's launch count."""
+    q = WorkQueue(num_workers=workers, capacity=2 * tasks, device_claim=True,
+                  device=device)
+    q.add_tasks(0, tasks)
+    q.claim_all(k=1, now=0.0)     # built and warm
+    found = _profile(lambda: q.claim_all(k=1, now=1.0))
+    return sum(us for name, (us, _) in found.items() if "claim" in name) / 1e3
 
 
 # --------------------------------------------------------------- phase 4
@@ -500,6 +531,20 @@ def _claim_case(dev, n, w, k, rng):
            "library_ms": None}
     row["device_ms"] = device_ms(lambda: wq_claim_fwd(
         status, worker, num_workers=w, k=k))
+    # what a call puts on the card, by the profiler's records: the claim
+    # kernel once, and no memset or copy
+    calls = 20
+    ops = _profile(lambda: [wq_claim_fwd(status, worker, num_workers=w, k=k)
+                            for _ in range(calls)])
+    row["device_ops_per_call"] = {name: n / calls
+                                  for name, (_, n) in ops.items()}
+    check(len(ops) == 1 and "claim_fused" in next(iter(ops)),
+          f"wq_claim puts {sorted(ops)} on the card")
+    # what one launch can reach: an empty kernel launched as this one is
+    row["empty_launch_device_ms"] = device_ms(
+        lambda: wq_claim_empty_launch(status, w))
+    row["empty_launch_ms"] = time_ms(
+        lambda: wq_claim_empty_launch(status, w), 100)
     # two int32 columns in, two out; ~4 integer operations a row
     row.update(_bound(16.0 * n, 4.0 * n, torch.int32))
     return row
@@ -759,11 +804,14 @@ def _rglru_case(dev, case, b, s, c, dtype, slow, rng):
            "channels": c, "dtype": str(dtype)[6:], **err,
            "tol": f"{RGLRU_REL_TOL} * max|ref|"
            + (" + 2**-7 * |ref|" if dtype == torch.bfloat16 else ""),
-           "timing": "L2 flushed before each call",
+           "timing": "ms, device_ms: L2 flushed before each call; "
+                     "*_warm: back to back, inputs in L2 where they fit",
            "ms": time_ms(lambda: rglru_scan_fwd(a, u), 100, cold=True),
+           "ms_warm": time_ms(lambda: rglru_scan_fwd(a, u), 100),
            "plain_ms": time_ms(lambda: rglru_scan_ref(a, u), 3, 1),
            "library_ms": None}
     row["device_ms"] = device_ms(lambda: rglru_scan_fwd(a, u), cold=True)
+    row["device_ms_warm"] = device_ms(lambda: rglru_scan_fwd(a, u))
     ops, nbytes = rglru_ops_bytes(b, s, c, dtype)
     row.update(_bound(nbytes, ops, dtype))
     return row

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Times the flash attention, decode attention and SSD scan kernels of one
-checkout at the serve path's shapes, so that two checkouts can be compared
-on one card.
+"""Times the flash attention, decode attention, SSD scan, RG-LRU scan and
+claim kernels of one checkout at the serve path's shapes, so that two
+checkouts can be compared on one card.
 
-    python scripts/kernel_ab.py --root DIR [--label NAME]
+    python scripts/kernel_ab.py --root DIR [--label NAME] [--only K1,K2]
 
 Loads ``DIR/chip_smoke.py``, which puts ``DIR/src`` first on the import
 path, and times that checkout's ``flash_attention_fwd`` (causal prefill:
@@ -14,9 +14,15 @@ bites), ``decode_attention_fwd`` (bf16: qwen2-0.5b's
 cache at kv_len 1000; recurrentgemma-9b's ring of 2048 at kv_len 1001 and
 full; a linear cache of 4096 at kv_len 3000 with window 2048) and
 ``ssd_scan_fwd`` (mamba2-1.3b's prefill: S 1000 fp32, ragged S 1031, bf16,
-slow decay at S 4096). Each case prints one JSON line: CUDA-event ms over
-back-to-back calls, and the kernels' device time (torch.profiler) back to
-back (warm: inputs stay in L2) and with L2 flushed before each call (cold).
+slow decay at S 4096), ``rglru_scan_fwd`` (recurrentgemma-9b's prefill,
+a and u [1,S,4096]: S 1000 fp32, ragged S 1031, bf16, slow decay at S 4096)
+and ``wq_claim_fwd`` (N 100,000 and 2^18 rows, W 64 and 936 workers, k 1
+and 4). ``--only`` keeps the kernels named (e.g. ``rglru_scan,wq_claim``).
+Each case prints one JSON line: CUDA-event ms over back-to-back calls (the
+RG-LRU rows' also with L2 flushed before each call), and the kernels'
+device time (torch.profiler) back to back (warm: inputs stay in L2) and
+with L2 flushed before each call (cold; not for the claim rows, whose
+1.6-4 MB the flush would not change).
 Both are read by the timers of the ``chip_smoke.py`` beside this script,
 whichever checkout is timed, so that two checkouts are read alike; the
 flash rows' error against the plain version is the timed checkout's own
@@ -54,6 +60,16 @@ SSD = [  # (case, seq, dtype, slow decay)
     ("bf16", 1000, torch.bfloat16, False),
     ("slow_decay", 4096, torch.float32, True),
 ]
+RGLRU = [  # (case, seq, dtype, slow decay), lru width 4096
+    ("main", 1000, torch.float32, False),
+    ("ragged", 1031, torch.float32, False),
+    ("bf16", 1000, torch.bfloat16, False),
+    ("slow_decay", 4096, torch.float32, True),
+]
+CLAIM = [(n, w, k) for n in (100_000, 1 << 18) for w in (64, 936)
+         for k in (1, 4)]
+KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+           "wq_claim")
 
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,7 +100,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default=",".join(KERNELS))
     args = ap.parse_args()
+    only = set(args.only.split(","))
     mod, timer = load_checkout(args.root)
     dev = torch.device("cuda", 0)
     # two seconds of matrix products first, so that the clocks have risen
@@ -96,7 +114,8 @@ def main() -> None:
         torch.cuda.synchronize()
     rng = np.random.default_rng(0)
     label = args.label or os.path.abspath(args.root)
-    for case, s, hq, hkv, dh, dtype, window in FLASH:
+    for case, s, hq, hkv, dh, dtype, window in (
+            FLASH if "flash_attention" in only else []):
         q, k, v = (torch.as_tensor(rng.standard_normal((1, s, h, dh)),
                                    dtype=torch.float32, device=dev).to(dtype)
                    for h in (hq, hkv, hkv))
@@ -118,7 +137,8 @@ def main() -> None:
                 lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
                 20)
         print(json.dumps(row), flush=True)
-    for case, smax, hq, hkv, dh, kv_len, window in DECODE:
+    for case, smax, hq, hkv, dh, kv_len, window in (
+            DECODE if "decode_attention" in only else []):
         q = torch.as_tensor(rng.standard_normal((1, 1, hq, dh)),
                             dtype=torch.float32, device=dev).bfloat16()
         k, v = (torch.as_tensor(rng.standard_normal((1, smax, hkv, dh)),
@@ -138,7 +158,7 @@ def main() -> None:
                           "device_ms_cold": timer.device_ms(fn, 50,
                                                             cold=True)}),
               flush=True)
-    for case, s, dtype, slow in SSD:
+    for case, s, dtype, slow in SSD if "ssd_scan" in only else []:
         xs = mod.ssd_inputs(rng, 64, s, 64, 128, 64, slow=slow, dtype=dtype,
                             device=dev)
 
@@ -150,6 +170,40 @@ def main() -> None:
                           "device_ms": timer.device_ms(fn, 20),
                           "device_ms_cold": timer.device_ms(fn, 20,
                                                             cold=True)}),
+              flush=True)
+    for case, s, dtype, slow in RGLRU if "rglru_scan" in only else []:
+        a, u = timer.rglru_inputs(rng, 1, s, 4096, slow=slow, dtype=dtype,
+                                  device=dev)
+
+        def fn():
+            return mod.rglru_scan_fwd(a, u)
+
+        err = timer.rglru_error(fn(), mod.rglru_scan_ref(a, u))
+        print(json.dumps({"label": label, "kernel": "rglru_scan",
+                          "case": case, "err_over_tol": err["err_over_tol"],
+                          "ms": timer.time_ms(fn, 100),
+                          "ms_cold": timer.time_ms(fn, 100, cold=True),
+                          "device_ms": timer.device_ms(fn, 20),
+                          "device_ms_cold": timer.device_ms(fn, 20,
+                                                            cold=True)}),
+              flush=True)
+    for n, w, k in CLAIM if "wq_claim" in only else []:
+        status = torch.as_tensor(rng.choice(
+            [0, 2, 3, 4], n, p=[.1, .5, .2, .2]).astype(np.int32), device=dev)
+        worker = torch.as_tensor(rng.integers(0, w, n).astype(np.int32),
+                                 device=dev)
+
+        def fn():
+            return mod.wq_claim_fwd(status, worker, num_workers=w, k=k)
+
+        got = fn()
+        want = mod.wq_claim_ref(status, worker, num_workers=w, k=k)
+        equal = bool(torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1]))
+        print(json.dumps({"label": label, "kernel": "wq_claim", "n": n,
+                          "workers": w, "k": k, "equal_to_plain": equal,
+                          "ms": timer.time_ms(fn, 200),
+                          "device_ms": timer.device_ms(fn, 20)}),
               flush=True)
 
 

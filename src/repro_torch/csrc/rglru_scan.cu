@@ -5,110 +5,175 @@
 // channel, h_t = a_t * h_{t-1} + u_t with h_0 = 0, over a and u [B, S, C]
 // (fp32 or bf16, computed in fp32), h written in a's dtype.
 //
-// What differs from the TPU design, and why: the TPU kernel gives each
-// (batch, 512-channel block) a sequential walk over 128-step time blocks,
-// carrying h in VMEM; its lanes are channels. On the card one thread per
-// channel walking all of S would give B*C/256 = 16 blocks at the serve
-// shape (B 1, C 4096) for 132 SMs, each thread a serial chain of S
-// dependent FMAs. Here the time axis is cut as well, with the recurrence's
-// associativity ((A1, H1) then (A2, H2) is (A1 A2, A2 H1 + H2)):
-//   - a block owns 32 consecutive channels (one per lane, so every load and
-//     store of a warp is 32 neighbouring values) and kWarps chunks of
-//     ceil(S / kWarps) steps, one chunk per warp;
-//   - walk 1: each lane runs its chunk from h = 0 and keeps the chunk's
-//     local h and the product of its a's, in fp32;
-//   - the kWarps (product, h) pairs meet in shared memory, and each warp
-//     folds those of the chunks before its own into its carry-in, in order;
-//   - walk 2: each lane runs its chunk again from its carry-in and writes h.
-// So at the serve shape 128 blocks of 512 threads fill the card, a lane's
-// serial chain is S / 16 steps, and a ragged S only moves the chunk bounds
-// (no padding). Loads are issued kUnroll steps ahead of the FMAs that use
-// them, so a lane keeps that many loads in flight. Walk 2 reads a and u a
-// second time, mostly from L2.
+// The TPU kernel gives each (batch, 512-channel block) a sequential walk
+// over 128-step time blocks, carrying h in VMEM from one block to the next;
+// its lanes are channels. Here a block likewise owns 32 channels of one
+// batch row (one a lane) and walks S in tiles of kTile = 128 steps,
+// carrying h in a register from one tile to the next, with the recurrence's
+// associativity inside a tile: (A1, H1) then (A2, H2) is (A1 A2, A2 H1 +
+// H2), and a chunk's aggregate (A, H) takes a carry h to A h + H.
 //
 // Bound on an H100 (3.35 TB/s) at the serve path's prefill (recurrentgemma-
 // 9b, B 1, S 1000, C 4096, fp32): a and u read once, h written once, 49.2 MB,
 // 0.0147 ms; one FMA and one multiply per element are negligible: bytes
-// bind. This kernel moves 1.67x those bytes (a and u read twice).
+// bind. So the kernel reads a and u once and keeps enough of them in
+// flight to cover DRAM's latency:
+//   - 128 blocks at the serve shape (C / 32 per batch row), one an SM, of 8
+//     warps;
+//   - the tiles stream through a ring of kStages slots in shared memory
+//     (kRingBytes, 96 KB: 3 tiles in fp32, 6 in bf16): while one tile is
+//     scanned, the next ones are in flight, 64 KB an SM, what 1/132 of the
+//     card's bandwidth needs at ~2.5 us of latency. Each warp copies its own
+//     16 rows of each tile of a and u with 16-byte cp.async copies and reads
+//     only those, so it needs no block barrier to know they have landed;
+//   - per tile, each warp loads its 16 steps of a and u into registers and
+//     runs them from h = 0 (its aggregate), the 8 aggregates meet in shared
+//     memory (one block barrier a tile), each warp folds those before its
+//     own onto the carry into the tile, in order, and runs its 16 steps
+//     again from registers, storing h: 32 neighbouring values a warp a
+//     step. Every warp also folds all 8, which gives the carry into the
+//     next tile, bit for bit the same in every warp.
+// A tile's chain is 16 + 8 + 16 dependent steps, not 128, and all four
+// schedulers of the SM have warps to issue.
+//
+// Why S is not also cut across blocks (a cluster of 8 blocks along S,
+// carries through distributed shared memory, tried for this design): a cut
+// along S needs each tile twice, for its aggregate and to write h once the
+// carry from the tiles before it is known, so to read a and u from DRAM
+// once the whole input has to stay on chip between the two passes. At the
+// serve shape it (32.8 MB) exceeds the card's shared memory (132 x 227 KB):
+// the blocks ran in two waves, each loading, waiting on its cluster, then
+// storing, with DRAM idle in between, and in bf16 it was slower than the
+// two-walk kernel it replaced. Here the loads of the next tiles overlap the
+// scan and the stores of this one. bf16 keeps one channel a lane (64 B
+// rows): two a lane (128 B rows) halves the blocks to 64 at C 4096 and was
+// slower. Every fold runs in a fixed order, so repeated calls give the same
+// bits.
+//
+// Any B, S and C, with no padding: rows past S are not copied and count as
+// a = 1, u = 0 (the identity), channels past C are not copied, and lanes
+// past C store nothing. When a row of C values is not a whole number of
+// 16-byte copies (or a pointer is not 16-byte aligned), each lane loads its
+// own channel one value at a time instead.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;     // channels per block, one per lane
-constexpr int kWarps = 16;     // time chunks per block, one per warp
-constexpr int kUnroll = 8;     // steps whose loads are issued together
-
-// Run h <- a_t h + u_t over steps [t0, t1) of one channel (element stride
-// c), from h; with WRITE, store each h_t. Returns the last h and multiplies
-// the chunk's a's into *prod.
-template <typename T, bool WRITE>
-__device__ __forceinline__ float walk(const T* __restrict__ a,
-                                      const T* __restrict__ u,
-                                      T* __restrict__ h_out, int t0, int t1,
-                                      size_t c, float h, float* prod) {
-  float p = 1.f;
-  int t = t0;
-  for (; t + kUnroll <= t1; t += kUnroll) {
-    float av[kUnroll], uv[kUnroll];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      av[i] = repro::to_float(a[(size_t)(t + i) * c]);
-      uv[i] = repro::to_float(u[(size_t)(t + i) * c]);
-    }
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      h = fmaf(av[i], h, uv[i]);
-      p *= av[i];
-      if (WRITE) h_out[(size_t)(t + i) * c] = repro::from_float<T>(h);
-    }
-  }
-  for (; t < t1; ++t) {
-    const float av = repro::to_float(a[(size_t)t * c]);
-    h = fmaf(av, h, repro::to_float(u[(size_t)t * c]));
-    p *= av;
-    if (WRITE) h_out[(size_t)t * c] = repro::from_float<T>(h);
-  }
-  *prod = p;
-  return h;
-}
+constexpr int kWarps = 8;
+constexpr int kRows = 16;                 // steps of a warp in a tile
+constexpr int kTile = kWarps * kRows;     // steps of a tile
+constexpr int kRingBytes = 96 * 1024;     // the ring of tiles
 
 template <typename T>
-__global__ void __launch_bounds__(kLanes * kWarps)
+struct Ring {
+  static constexpr int kRow = 32 * (int)sizeof(T);      // bytes of a row
+  static constexpr int kSlot = 2 * kTile * kRow;        // a and u of a tile
+  static constexpr int kStages = kRingBytes / kSlot;    // tiles in the ring
+};
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarps, 1)
 rglru_fwd(const T* __restrict__ a, const T* __restrict__ u,
-          T* __restrict__ h, int s, int c) {
-  __shared__ float sm_prod[kWarps][kLanes];   // product of a over a chunk
-  __shared__ float sm_h[kWarps][kLanes];      // the chunk's h from h = 0
+          T* __restrict__ h, int s, int c, int vec) {
+  constexpr int kRow = Ring<T>::kRow;
+  constexpr int kStages = Ring<T>::kStages;
+  constexpr int kCopies = kRow / 16;          // 16-byte copies of a row
+  constexpr int kPer = 16 / (int)sizeof(T);   // values of a copy
+  extern __shared__ __align__(16) unsigned char ring[];  // [slot][a,u][row]
+  __shared__ float2 agg[2][kWarps][32];       // warp aggregates (A, H)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int ch = blockIdx.x * kLanes + lane;
+  const int c0 = blockIdx.x * 32;
+  const int ch = c0 + lane;
   const bool live = ch < c;
-  const int len = (s + kWarps - 1) / kWarps;
-  const int t0 = min(s, warp * len);
-  const int t1 = min(s, t0 + len);
-  const size_t off = (size_t)blockIdx.y * s * c + (live ? ch : 0);
-  const T* ab = a + off;
-  const T* ub = u + off;
-  T* hb = h + off;
+  const size_t base = (size_t)blockIdx.y * s * c;
+  const int ntiles = (s + kTile - 1) / kTile;
 
-  float prod = 1.f, hl = 0.f;
-  if (live) hl = walk<T, false>(ab, ub, hb, t0, t1, (size_t)c, 0.f, &prod);
-  sm_prod[warp][lane] = prod;
-  sm_h[warp][lane] = hl;
-  __syncthreads();
+  // this warp's rows of tile i into ring slot `slot`, as one commit group
+  auto load = [&](int i, int slot) {
+    const int t0 = i * kTile + warp * kRows;
+    const int rows = i < ntiles ? max(0, min(kRows, s - t0)) : 0;
+    unsigned char* ta = ring + (size_t)slot * Ring<T>::kSlot +
+                        warp * kRows * kRow;
+    unsigned char* tu = ta + kTile * kRow;
+    if (vec) {
+      const int q = lane % kCopies;
+      if (c0 + (q + 1) * kPer <= c)
+        for (int r = lane / kCopies; r < rows; r += 32 / kCopies) {
+          const size_t off = base + (size_t)(t0 + r) * c + c0 + q * kPer;
+          repro::cp_async16(ta + r * kRow + q * 16, a + off);
+          repro::cp_async16(tu + r * kRow + q * 16, u + off);
+        }
+    } else if (live) {
+      T* da = reinterpret_cast<T*>(ta);
+      T* du = reinterpret_cast<T*>(tu);
+      for (int r = 0; r < rows; ++r) {
+        const size_t off = base + (size_t)(t0 + r) * c + ch;
+        da[r * 32 + lane] = a[off];
+        du[r * 32 + lane] = u[off];
+      }
+    }
+    repro::cp_async_commit();
+  };
 
-  float carry = 0.f;   // h just before t0
-  for (int w = 0; w < warp; ++w)
-    carry = fmaf(sm_prod[w][lane], carry, sm_h[w][lane]);
-  if (live) walk<T, true>(ab, ub, hb, t0, t1, (size_t)c, carry, &prod);
+  for (int i = 0; i < kStages; ++i) load(i, i);
+  float carry = 0.f;                          // h before the tile
+  for (int i = 0; i < ntiles; ++i) {
+    const int slot = i % kStages;
+    const int p = i & 1;
+    repro::cp_async_wait<kStages - 1>();      // this warp's rows of tile i
+    __syncwarp();
+    const int t0 = i * kTile + warp * kRows;
+    const int rows = max(0, min(kRows, s - t0));
+    const T* ta = reinterpret_cast<const T*>(
+        ring + (size_t)slot * Ring<T>::kSlot + warp * kRows * kRow);
+    const T* tu = ta + kTile * 32;
+    float av[kRows], uv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {         // past S: the identity
+      av[r] = r < rows ? repro::to_float(ta[r * 32 + lane]) : 1.f;
+      uv[r] = r < rows ? repro::to_float(tu[r * 32 + lane]) : 0.f;
+    }
+    __syncwarp();                             // the slot may be refilled
+    load(i + kStages, slot);
+
+    float A = 1.f, H = 0.f;                   // this warp's aggregate
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      H = fmaf(av[r], H, uv[r]);
+      A *= av[r];
+    }
+    agg[p][warp][lane] = make_float2(A, H);
+    __syncthreads();
+    float cin = carry;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float2 x = agg[p][w][lane];
+      if (w == warp) cin = carry;
+      carry = fmaf(x.x, carry, x.y);
+    }
+    T* hp = h + base + (size_t)t0 * c + ch;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      cin = fmaf(av[r], cin, uv[r]);
+      if (live && r < rows) hp[(size_t)r * c] = repro::from_float<T>(cin);
+    }
+  }
+  repro::cp_async_wait<0>();
 }
 
 template <typename T>
 int launch(const void* a, const void* u, void* h, int b, int s, int c,
            cudaStream_t stream) {
-  dim3 grid((c + kLanes - 1) / kLanes, b);
-  rglru_fwd<T><<<grid, kLanes * kWarps, 0, stream>>>(
-      (const T*)a, (const T*)u, (T*)h, s, c);
+  const cudaError_t e = cudaFuncSetAttribute(
+      rglru_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = ((size_t)c * sizeof(T)) % 16 == 0 &&
+                  ((size_t)a | (size_t)u) % 16 == 0;
+  dim3 grid((c + 31) / 32, b);
+  rglru_fwd<T><<<grid, 32 * kWarps, kRingBytes, stream>>>(
+      (const T*)a, (const T*)u, (T*)h, s, c, vec);
   return (int)cudaGetLastError();
 }
 

@@ -38,8 +38,10 @@ DTYPE_CODES = {torch.float32: FLOAT32, torch.bfloat16: BFLOAT16}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "wq_claim_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "wq_claim_launch": (
+        [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P], _I),
     "wq_claim_scratch_ints": ([_I, _I], ctypes.c_longlong),
+    "wq_claim_empty_launch": ([_I, _I, _P], _I),
     "flash_attention_launch": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "decode_attention_launch": (

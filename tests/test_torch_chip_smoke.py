@@ -129,6 +129,16 @@ def test_claim_phase_on_cpu(chip_smoke):
     assert res["launches"] == {"wq_claim": 0}
 
 
+def test_claim_phase_reports_wall_ms_on_cpu(chip_smoke):
+    """Each claim_all's wall ms on both paths, rounds x (k 1, k 4) of each;
+    the kernel's device time is read only on a card."""
+    res = chip_smoke.phase_claim("cpu", tasks=2000, workers=8, rounds=3)
+    walls = res["claim_all_wall_ms"]
+    assert sorted(walls) == ["device", "host"]
+    assert all(len(v) == 2 * 3 and min(v) > 0 for v in walls.values())
+    assert res["kernel_device_ms"] is None
+
+
 def test_main_refuses_without_a_card(chip_smoke, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -78,6 +78,54 @@ def test_wq_claim_kernel_equals_plain(dev, n, w, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _claim_columns(rng, n, w, dev):
+    status = torch.as_tensor(rng.choice([0, 2, 3, 4], n, p=[.1, .5, .2, .2])
+                             .astype(np.int32), device=dev)
+    worker = torch.as_tensor(rng.integers(-1, w + 1, n).astype(np.int32),
+                             device=dev)
+    return status, worker
+
+
+@pytest.mark.parametrize("n,w,k", [
+    (100_000, 936, 1),
+    (1 << 22, 64, 4),         # 4096 tiles: more than the resident blocks
+    (3_000_000, 5000, 3),     # and W past the shared-memory path
+])
+def test_wq_claim_kernel_repeats_bit_identical(dev, n, w, k):
+    """20 calls back to back on one stream give the same results, equal to
+    the plain version: the grid barrier's words are left zeroed, and a
+    block that owns several tiles counts them again for the rank pass."""
+    status, worker = _claim_columns(np.random.default_rng(n), n, w, dev)
+    outs = [wq_claim_fwd(status, worker, num_workers=w, k=k)
+            for _ in range(20)]
+    want = wq_claim_ref(status, worker, num_workers=w, k=k)
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wq_claim_kernel_alternating_k_on_one_stream(dev):
+    """Calls with different k (and a k past every worker's count) on one
+    stream, back to back, each equal to the plain version."""
+    status, worker = _claim_columns(np.random.default_rng(5), 262_144, 64,
+                                    dev)
+    ks = [1, 4, 2, 100_000, 0, 1]
+    outs = [wq_claim_fwd(status, worker, num_workers=64, k=k) for k in ks]
+    torch.cuda.synchronize()
+    for k, got in zip(ks, outs):
+        want = wq_claim_ref(status, worker, num_workers=64, k=k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wq_claim_empty_launch_is_not_counted(dev):
+    from repro_torch.kernels.wq_claim.kernel import empty_launch
+    status = torch.full((100_000,), 2, dtype=torch.int32, device=dev)
+    before = wq_claim_fwd.launches
+    empty_launch(status, 936)
+    torch.cuda.synchronize()
+    assert wq_claim_fwd.launches == before
+
+
 @pytest.mark.parametrize("b,s,hq,hkv,dh,causal,window,dtype", [
     (1, 1000, 14, 2, 64, True, 0, torch.float32),
     (1, 1000, 14, 2, 64, True, 0, torch.bfloat16),
@@ -262,9 +310,17 @@ def _rglru_inputs(rng, b, s, c, dtype, dev, slow):
     (1, 4096, 4096, torch.float32, True),    # carry dominates
     (2, 64, 128, torch.float32, False),      # the reference's kernel-test
     (1, 256, 512, torch.float32, False),     # shapes
-    (3, 5, 40, torch.float32, True),         # S below the 16 time chunks
+    (3, 5, 40, torch.float32, True),         # S below one warp's 16 steps
     (2, 300, 100, torch.bfloat16, True),     # C not a multiple of 32
     (1, 1, 33, torch.float32, False),
+    # tile edges on S (tiles of 128 steps): 10 tiles exactly, a step past
+    # them, and 30 tiles and a step
+    (1, 1280, 256, torch.float32, True),
+    (1, 1281, 256, torch.float32, True),
+    (2, 3841, 96, torch.bfloat16, True),
+    (3, 1031, 200, torch.float32, False),    # B > 1, ragged S and C
+    (3, 1031, 200, torch.bfloat16, True),
+    (1, 7, 4096, torch.float32, True),       # fewer steps than blocks
 ])
 def test_rglru_scan_kernel_equals_plain(dev, b, s, c, dtype, slow):
     """Against the sequential recurrence: |got - ref| <= 1e-4 max |ref| per
@@ -279,6 +335,26 @@ def test_rglru_scan_kernel_equals_plain(dev, b, s, c, dtype, slow):
     if dtype == torch.bfloat16:
         tol = tol + 2.0 ** -7 * want.float().abs()
     assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("b,s,c,dtype", [
+    (1, 1000, 4096, torch.float32),
+    (1, 4096, 4096, torch.bfloat16),
+    (8, 1000, 8192, torch.float32),   # 2048 blocks: more than resident
+])
+def test_rglru_scan_kernel_repeats_bit_identical(dev, b, s, c, dtype):
+    """20 calls back to back give the same bits: every fold runs in a fixed
+    order, whichever warp finishes first."""
+    a, u = _rglru_inputs(np.random.default_rng(c), b, s, c, dtype, dev, True)
+    first = rglru_scan_fwd(a, u)
+    outs = [rglru_scan_fwd(a, u) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    want = rglru_scan_ref(a, u)
+    tol = 1e-4 * want.float().abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    assert bool(((first.float() - want.float()).abs() <= tol).all())
 
 
 def test_rglru_core_from_a_state_launches_the_scan(dev):

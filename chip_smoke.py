@@ -23,13 +23,25 @@ Phases, each printing JSON lines:
      card are held against the same model on the CPU (plain versions); for
      recurrentgemma-9b that check runs on a 4-layer cut of it at full width
      (one group and one tail layer) with a 2,100-token prompt, so that the
-     prefill's window bites and the ring wraps. One more request of each
-     model runs under the profiler;
+     prefill's window bites and the ring wraps. Two more requests of each
+     model run under the profiler, one after the other, their records
+     counted (a lost record would read as idle time);
   3. claim: a 936-worker work queue of 100,000 tasks claims through the
      ``wq_claim`` kernel, and must return the claim dicts of the host path;
      each claim_all's wall ms, on the device path and the host path, and
      the kernel's device time in one more device claim_all;
-  4. kernels: each kernel against its plain PyTorch version on the card at
+  4. train: ``TrainExecutor`` trains qwen2-0.5b at full width and depth
+     (bf16 compute, fp32 master params, remat, AdamW; batch 8 x 2048
+     tokens) for 6 store-driven steps claimed by 2 workers through the
+     claim kernel, with steering sweeps on snapshots; every task FINISHED,
+     finite losses, the store's out0 the history's losses, exact launches
+     of the flash forward (twice a layer and step: remat) and backward;
+     s/step, tokens/s and peak memory. Then 2 more steps under the profiler
+     (wall, card busy, idle share, top kernels, records counted), and one
+     step of a 2-layer fp32 cut on the card against the same step on the
+     CPU (loss, grad norm, every gradient, the new params of the embedding,
+     an attention block and an MLP; every parameter's gradient nonzero);
+  5. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (``ssd_scan`` and ``rglru_scan`` also at a
      ragged length, in bf16, and in a slow-decay case where the state
      carried across chunks dominates the output; the attention kernels also
@@ -42,7 +54,11 @@ Phases, each printing JSON lines:
      decode attention's and SSD scan's both back to back and flushed, beside
      SDPA's in the same two modes; the fp32 SSD scan and flash attention
      held against three TF32 products per product, their route, with the
-     fp32-FMA bound beside it), then one ``{"kernels": [...]}`` line:
+     fp32-FMA bound beside it; the flash forward with its row log-sum-exp
+     and the flash backward at the train shape, the backward also at a
+     ragged S in fp32, at glm4-9b's heads and windowed, each of dq, dk and
+     dv within its limit and a repeat bit-identical, beside SDPA's backward
+     and the function's bound), then one ``{"kernels": [...]}`` line:
      one entry per kernel and model that launches it, with that serve run's
      launches and the device times of the kernel and of its library call.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises:
@@ -68,11 +84,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import SteeringEngine, WorkQueue  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, shard_batch  # noqa: E402
+from repro_torch.flags import device_claims  # noqa: E402
 from repro_torch.kernels import launch_counts, library, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_bwd, flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
@@ -80,9 +100,11 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import empty_launch as wq_claim_empty_launch  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
-from repro_torch.launch.steps import copy_params  # noqa: E402
+from repro_torch.launch.steps import (copy_params, init_train_state,  # noqa: E402
+                                      loss_and_grads, make_train_step)
 from repro_torch.models.transformer import hybrid_counts  # noqa: E402
-from repro_torch.runtime.executor import ServeExecutor  # noqa: E402
+from repro_torch.optim import init_opt  # noqa: E402
+from repro_torch.runtime.executor import ServeExecutor, TrainExecutor  # noqa: E402
 
 # limit of an attention kernel against its plain version, per element: fp32
 # sums over 1,000+ keys in another order than the plain einsum (1e-4, looser
@@ -108,6 +130,25 @@ RGLRU_REL_TOL = 1e-4
 # recurrentgemma-9b's weights are 51.5 GB (34.3 GB fp32 master, 17.2 GB bf16
 # decode copy); a second fp32 copy during the cast would pass this
 HYBRID_MAX_PEAK_BYTES = 56e9
+# the flash backward against its plain version: fp32 sums of up to S x g
+# terms in another order, 1e-4 of the gradient's largest element; bf16 also
+# one bf16 step of the value (both sides round once from fp32). The row
+# log-sum-exp the forward writes for it: 1e-4 absolute (it scales every P of
+# its row by exp of its error)
+BWD_REL_TOL = 1e-4
+LSE_TOL = 1e-4
+# train check, card against CPU, fp32, 2 layers at full width: the loss
+# (sums of 151,936 logits a token in another order) 1e-5 relative, the
+# grad norm 1e-4 relative, every gradient 1e-3 of its tensor's largest
+# (the flash forward's 3xTF32 products, sums in another order); after one
+# AdamW step, 1e-2 of the lr per element where the gradient is resolved (at
+# least 100 times the tensor's largest card-vs-CPU gradient difference, so
+# that its sign cannot flip), else the update's size, 2 lr: the first
+# update is lr g / (|g| + 1e-8). The key bias's gradient is 0 in exact
+# arithmetic (it shifts a row's logits uniformly): noise on both sides
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GNORM_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W);
 # "tf32" is the tensor cores' TF32 rate, which the 3xTF32 products of the
 # SSD scan and of the fp32 flash attention run at
@@ -117,11 +158,14 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12,
 
 SRC = {"wq_claim": "src/repro_torch/csrc/wq_claim.cu",
        "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+       "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
        "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
        "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
        "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu"}
 REPLACES = {"wq_claim": "src/repro/kernels/wq_claim/kernel.py:32",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:25",
+            # no Pallas backward: XLA differentiates the reference's sdpa_ref
+            "flash_attention_bwd": "src/repro/models/attention.py:43",
             "decode_attention": "src/repro/kernels/decode_attention/kernel.py:21",
             "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:23",
             "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:20"}
@@ -155,6 +199,15 @@ SERVE_LAUNCHES = {
     "hybrid": lambda cfg, r, new: {"rglru_scan": layers_of(cfg, "rec") * r,
                                    **_attention_launches(cfg, r, new)},
 }
+
+
+def train_launches(cfg, steps: int, ticks: int) -> dict:
+    """Kernels a train run launches: per step and attention layer one flash
+    forward (two with remat: the backward recomputes it) and one flash
+    backward; one claim kernel per tick's claim_all (device claims on)."""
+    n = layers_of(cfg, "attn") * steps
+    return {"flash_attention": n * (2 if cfg.remat else 1),
+            "flash_attention_bwd": n, "wq_claim": ticks}
 
 
 def emit(obj) -> None:
@@ -314,30 +367,222 @@ def phase_hybrid_check(cfg, device, *, layers=4, prompt_len=2100, steps=3,
     return res
 
 
-def phase_serve_profile(ex, *, prompt_len=1000, max_new=9, seed=2) -> dict:
-    """One more request through the executor under torch.profiler (CUDA
-    activity): wall time of its prefill and decode steps against the time
-    the card was busy, and the kernels that took it."""
+def profile_calls(body, calls: int = 2) -> dict:
+    """``body`` run ``calls`` times under torch.profiler (CUDA activity):
+    wall seconds per call, and each kernel's device us per call counted as
+    :func:`device_ms` counts them (:func:`per_call_us`: every call runs each
+    kernel equally often, so a kernel's records come in multiples of
+    ``calls``; a profile that lost some reads whole), with the records lost
+    by kernel."""
     from torch.profiler import ProfilerActivity, profile
-    prompt = np.random.default_rng(seed).integers(
-        0, ex.cfg.vocab_size, (1, prompt_len)).astype(np.int32)
-    ex.submit(prompt, max_new=max_new)
-    sync(ex.device)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ex.drain()
-        sync(ex.device)
-    wall = time.perf_counter() - t0
-    by_name = {name: us for name, (us, _) in _device_kernels(prof).items()}
+        for _ in range(calls):
+            body()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls
+    kernels = _device_kernels(prof)
+    return {"wall_s": wall, "per_call_us": per_call_us(kernels, calls),
+            "records": sum(n for _, n in kernels.values()),
+            "records_lost": records_lost(kernels, calls)}
+
+
+def records_lost(kernels: dict, calls: int) -> dict:
+    """Records a profile of ``calls`` equal calls lost, by kernel: a
+    kernel's records come in multiples of ``calls``, and fewer than
+    ``calls`` of them are lost (:func:`per_call_us`)."""
+    return {name[:60]: calls * -(-n // calls) - n
+            for name, (_, n) in kernels.items() if n % calls}
+
+
+def _profile_result(prof: dict) -> dict:
+    by_name = prof["per_call_us"]
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_s": prof["wall_s"], "device_busy_s": busy,
+            "device_idle_share": (1.0 - busy / prof["wall_s"]) if busy
+            else None,
+            "records": prof["records"], "records_lost": prof["records_lost"],
+            "top_kernels_ms": [[name[:60], us / 1e3] for name, us in top]}
+
+
+def phase_serve_profile(ex, *, prompt_len=1000, max_new=9, seed=2,
+                        calls=2) -> dict:
+    """``calls`` more requests of the same prompt through the executor, one
+    after the other, under torch.profiler: per request, the wall time of
+    its prefill and decode steps against the time the card was busy, and
+    the kernels that took it (records counted, :func:`profile_calls`)."""
+    prompt = np.random.default_rng(seed).integers(
+        0, ex.cfg.vocab_size, (1, prompt_len)).astype(np.int32)
+
+    def request():
+        ex.submit(prompt, max_new=max_new)
+        ex.drain()
+
+    sync(ex.device)
     res = {"phase": "serve_profile", "arch": ex.cfg.name,
-           "prompt_len": prompt_len,
-           "decode_steps": max_new - 1, "wall_s": wall,
-           "device_busy_s": busy,
-           "device_idle_share": (1.0 - busy / wall) if busy else None,
-           "top_kernels_ms": [[name[:60], us / 1e3] for name, us in top]}
+           "prompt_len": prompt_len, "decode_steps": max_new - 1,
+           "requests": calls, **_profile_result(profile_calls(request, calls))}
     emit(res)
+    return res
+
+
+# ------------------------------------------------------------ phase train
+def phase_train(cfg, device, *, steps=6, workers=2, seq_len=2048, batch=8,
+                seed=0) -> dict:
+    """``TrainExecutor`` at ``cfg``'s full width and depth: ``steps``
+    train-step tasks claimed by ``workers`` partitions through the claim
+    kernel (device claims on), each step's loss, grad norm and seconds
+    written back to the store, steering sweeps on snapshots every 2 steps.
+    The launch counts are this run's alone; peak device memory is read over
+    building the executor (master params, AdamW moments) and over the run."""
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(device)
+    with device_claims(True):
+        ex = TrainExecutor(cfg, num_workers=workers, steer_every=2, seed=seed,
+                           data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                               seq_len=seq_len,
+                                               batch_size=batch),
+                           device=device)
+    init_peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    ex.submit_steps(steps)
+    sync(ex.device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = ex.run()
+    sync(ex.device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    ticks = -(-steps // workers)
+    want = train_launches(cfg, steps, ticks)
+    losses = [h["loss"] for h in hist]
+    check(ex.wq.device_claim, "the train queue does not claim on the device")
+    check(len(hist) == steps == ex.wq.counts()["FINISHED"],
+          f"finished {ex.wq.counts()['FINISHED']} of {steps}")
+    check(bool(np.isfinite(losses).all()), f"losses {losses}")
+    out0 = ex.wq.store.col("out0")[:steps]
+    check(np.array_equal(np.sort(out0), np.sort(losses)),
+          f"store out0 {out0} != history losses {losses}")
+    check(ex.last_steering is not None, "no steering sweep ran")
+    if on_card:
+        for k, n in counts.items():
+            check(n == want.get(k, 0),
+                  f"{k} launches {n} != {want.get(k, 0)} (train)")
+    steady = [h["s_per_step"] for h in hist[1:]] or [hist[0]["s_per_step"]]
+    s_step = float(np.mean(steady))
+    res = {"phase": "train", "arch": cfg.name, "device": str(ex.device),
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
+           "remat": cfg.remat, "seq_len": seq_len, "batch": batch,
+           "workers": workers, "steps": steps, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "s_per_step": [h["s_per_step"] for h in hist],
+           "steady_s_per_step": s_step,
+           "tokens_per_s": batch * seq_len / s_step,
+           "wall_s": wall, "init_peak_mem_bytes": init_peak,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                              if on_card else None),
+           "launches": {k: counts[k] for k in want},
+           "steering_q4": ex.last_steering["q4"],
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return {"result": res, "executor": ex}
+
+
+def phase_train_profile(ex, *, calls=2) -> dict:
+    """``calls`` more train steps of the executor (one task and one tick
+    each) under torch.profiler: per step, wall time against the time the
+    card was busy, the idle share and the kernels that took it (records
+    counted, :func:`profile_calls`)."""
+    t_phase = time.perf_counter()
+
+    def one_step():
+        ex.submit_steps(1)
+        ex.run()
+
+    sync(ex.device)
+    res = {"phase": "train_profile", "arch": ex.cfg.name,
+           "steps": calls, **_profile_result(profile_calls(one_step, calls))}
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def phase_train_check(cfg, device, *, layers=2, batch=2, seq_len=256, seed=3,
+                      lr=3e-4) -> dict:
+    """One train step on the card against the same step on the CPU (plain
+    versions), from the same params and batch: a ``layers``-layer cut of
+    ``cfg`` at full width in fp32. Every parameter must get a nonzero
+    gradient on the card; the loss, the grad norm, every gradient, and the
+    new params of the embedding, layer 0's attention and its MLP are held
+    to the limits above."""
+    t_phase = time.perf_counter()
+    c = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    card = init_train_state(c, torch.Generator(device=device)
+                            .manual_seed(seed))
+    host_params = cpu_copy(card["params"]).requires_grad_(True)
+    host = {"params": host_params, "opt": init_opt(c, host_params)}
+    tok = shard_batch(DataConfig(vocab_size=c.vocab_size, seq_len=seq_len,
+                                 batch_size=batch), seed)
+    b_card = {k: torch.as_tensor(v, device=device) for k, v in tok.items()}
+    b_host = {k: torch.as_tensor(v) for k, v in tok.items()}
+    _, _, g_card = loss_and_grads(c, card["params"], b_card)
+    zero = [n for n, g in g_card.items() if not bool((g != 0).any())]
+    check(not zero, f"no gradient on the card for {zero}")
+    _, _, g_host = loss_and_grads(c, host["params"], b_host)
+    grad_err = {}
+    for n, g in g_host.items():
+        if n.endswith("attn.k.bias"):
+            continue
+        err = float((g_card[n].cpu() - g).abs().max()) / float(g.abs().max())
+        grad_err[n] = err
+        check(err <= TRAIN_GRAD_TOL, f"gradient {n}: {err} of its largest")
+    step = make_train_step(c)
+    card, m_card = step(card, b_card, {"lr": lr})
+    host, m_host = step(host, b_host, {"lr": lr})
+    loss_c, loss_h = float(m_card["loss"]), float(m_host["loss"])
+    gn_c, gn_h = float(m_card["grad_norm"]), float(m_host["grad_norm"])
+    check(np.isfinite(loss_c) and abs(loss_c - loss_h) <=
+          TRAIN_LOSS_TOL * abs(loss_h), f"loss {loss_c} vs {loss_h}")
+    check(abs(gn_c - gn_h) <= TRAIN_GNORM_TOL * gn_h,
+          f"grad norm {gn_c} vs {gn_h}")
+    new_card = dict(card["params"].named_parameters())
+    param_err = {}
+    for n, p in host["params"].named_parameters():
+        if not (n == "embed.weight" or n.startswith("layers.0.attn.")
+                or n.startswith("layers.0.mlp.")):
+            continue
+        m = host["opt"]["inner"]["m"][n]      # 0.1 g, scaled, on both
+        gap = (card["opt"]["inner"]["m"][n].cpu() - m).abs().max()
+        tol = torch.where(m.abs() >= 100 * gap, 1e-2 * lr, 2 * lr)
+        if n.endswith("attn.k.bias"):
+            tol = torch.full_like(m, 2 * lr)
+        diff = (new_card[n].detach().cpu() - p.detach()).abs()
+        param_err[n] = {"max_abs_err": float(diff.max()),
+                        "err_over_tol": float((diff / tol).max()),
+                        "resolved_share": float((tol < 2 * lr).float()
+                                                .mean())}
+        check(bool((diff <= tol).all()), f"new param {n}: "
+              f"{param_err[n]['err_over_tol']} of its limit")
+    res = {"phase": "train_check", "arch": cfg.name, "layers": layers,
+           "batch": batch, "seq_len": seq_len, "dtype": "float32",
+           "loss": [loss_c, loss_h], "grad_norm": [gn_c, gn_h],
+           "loss_tol": TRAIN_LOSS_TOL, "grad_norm_tol": TRAIN_GNORM_TOL,
+           "max_grad_err_over_largest": max(grad_err.values()),
+           "grad_tol": TRAIN_GRAD_TOL, "params": param_err,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    del card, host
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
     return res
 
 
@@ -386,16 +631,25 @@ def phase_claim(device, *, tasks=100_000, workers=936, rounds=3) -> dict:
     return res
 
 
-def claim_all_kernel_ms(tasks: int, workers: int, device) -> float:
-    """Device ms of the claim kernel in one more device-claim claim_all (a
-    fresh queue of the phase's store, k 1, under torch.profiler), read
-    after the phase's launch count."""
+def claim_all_kernel_ms(tasks: int, workers: int, device,
+                        calls: int = 20) -> float:
+    """Device ms of the claim kernel in one device-claim claim_all (a fresh
+    queue of the phase's store, k 1, ``calls`` claim_alls under
+    torch.profiler, each launching the kernel once), read after the
+    phase's launch count. Records are counted (:func:`per_call_us`); a
+    profile without any record of the kernel is taken again, and none in
+    three raises."""
     q = WorkQueue(num_workers=workers, capacity=2 * tasks, device_claim=True,
                   device=device)
     q.add_tasks(0, tasks)
     q.claim_all(k=1, now=0.0)     # built and warm
-    found = _profile(lambda: q.claim_all(k=1, now=1.0))
-    return sum(us for name, (us, _) in found.items() if "claim" in name) / 1e3
+    for _ in range(3):
+        found = {name: rec for name, rec in _profile(
+            lambda: [q.claim_all(k=1, now=1.0) for _ in range(calls)]
+        ).items() if "claim" in name}
+        if found:
+            return sum(per_call_us(found, calls).values()) / 1e3
+    raise AssertionError("no record of the claim kernel in three profiles")
 
 
 # --------------------------------------------------------------- phase 4
@@ -571,52 +825,149 @@ def flash_pairs(s: int, window: int = 0) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def _flash_case(dev, s, hq, hkv, dh, dtype, rng, window=0, arch=None):
-    q, k, v = (torch.as_tensor(rng.standard_normal((1, s, h, dh)),
+def _sdpa_call(q, k, v, window, grad=False):
+    """SDPA of the same function on [B,H,S,dh] copies of q, k, v (causal,
+    the window as a mask), the yardstick only; with ``grad`` the copies
+    require grad."""
+    s = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(grad)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window and window < s:      # the same function: the window as a mask
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        return functools.partial(sdpa, qt, kt, vt, attn_mask=mask,
+                                 enable_gqa=True), (qt, kt, vt)
+    return functools.partial(sdpa, qt, kt, vt, is_causal=True,
+                             enable_gqa=True), (qt, kt, vt)
+
+
+def _flash_case(dev, s, hq, hkv, dh, dtype, rng, window=0, arch=None, b=1,
+                lse=False):
+    """The forward against its plain version; with ``lse`` it also writes
+    the row log-sum-exp (the train path's variant), held against
+    :func:`flash_attention_lse_ref`."""
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, s, h, dh)),
                                dtype=torch.float32, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
     fa = functools.partial(flash_attention_fwd, q, k, v, causal=True,
-                           window=window)
+                           window=window, return_lse=lse)
     got = fa()
     ref = flash_attention_ref(q, k, v, causal=True, window=window)
-    err = _attn_error(got, ref, f"flash {dtype} S={s} window={window}")
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    if window and window < s:      # the same function: the window as a mask
-        i = torch.arange(s, device=dev)
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-        lib = functools.partial(sdpa, qt, kt, vt, attn_mask=mask,
-                                enable_gqa=True)
-    else:
-        lib = functools.partial(sdpa, qt, kt, vt, is_causal=True,
-                                enable_gqa=True)
+    err = _attn_error(got[0] if lse else got, ref,
+                      f"flash {dtype} S={s} window={window}")
+    if lse:
+        want = flash_attention_lse_ref(q, k, causal=True, window=window)
+        err["lse_max_abs_err"] = float((got[1] - want).abs().max())
+        err["lse_tol"] = LSE_TOL
+        check(err["lse_max_abs_err"] <= LSE_TOL,
+              f"flash lse {dtype} S={s}: {err['lse_max_abs_err']}")
+    lib, _ = _sdpa_call(q, k, v, window)
     row = {"kernel": "flash_attention", "arch": arch,
            "shape_q": list(q.shape), "shape_kv": list(k.shape),
-           "window": window, "dtype": str(dtype)[6:], **err,
+           "window": window, "dtype": str(dtype)[6:], "lse": lse, **err,
            "ms": time_ms(fa, 50),
            "plain_ms": time_ms(lambda: flash_attention_ref(
-               q, k, v, causal=True, window=window), 10),
+               q, k, v, causal=True, window=window), 10 if b == 1 else 3),
            "library_ms": time_ms(lib, 50)}
     row["device_ms"] = device_ms(fa)
     row["library_device_ms"] = device_ms(lib)
-    row.update(flash_bound(s, hq, hkv, dh, dtype, window))
+    row.update(flash_bound(s, hq, hkv, dh, dtype, window, b=b))
+    if lse:    # the lse written once: 4 bytes a row
+        row.update(_bound(row["bytes"] + 4.0 * b * hq * s, row["ops"],
+                          "tf32" if dtype == torch.float32 else dtype))
     return row
 
 
-def flash_bound(s, hq, hkv, dh, dtype, window=0) -> dict:
-    """Bound of a causal flash attention over S positions (batch 1): 4 dh Hq
+def flash_bound(s, hq, hkv, dh, dtype, window=0, b=1) -> dict:
+    """Bound of a causal flash attention over S positions (batch b): 4 dh Hq
     operations per visible (query, key) pair; q, k, v read and o written
     once. fp32 runs on the kernel's route, three TF32 products per product
     at the tensor cores' TF32 rate, with the bound of the same work on fp32
     FMAs beside it (``bound_before_ms``, what earlier readings were held
     against); bf16 at its tensor rate."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elt * 2 * s * dh * (hq + hkv)
-    ops = 4.0 * flash_pairs(s, window) * dh * hq
+    nbytes = elt * 2 * b * s * dh * (hq + hkv)
+    ops = 4.0 * b * flash_pairs(s, window) * dh * hq
     if dtype != torch.float32:
         return _bound(nbytes, ops, dtype)
     return {**_bound(nbytes, 3.0 * ops, "tf32"), "useful_ops": ops,
             "bound_before_ms": _bound(nbytes, ops, dtype)["bound_ms"]}
+
+
+def flash_bwd_bound(b, s, hq, hkv, dh, dtype, window=0) -> dict:
+    """Bound of the attention backward (the function, not the kernel's
+    recompute): 10 dh Hq operations per visible (query, key) pair and batch
+    row (S = Q K^T, dP = dO V^T, dV, dK, dQ) at the dtype's peak (fp32: FMA,
+    67 TFLOP/s; bf16: 989), against q, k, v, o and dO read and dq, dk, dv
+    written once."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elt * b * s * dh * 4 * (hq + hkv)
+    ops = 10.0 * b * flash_pairs(s, window) * dh * hq
+    return _bound(nbytes, ops, dtype)
+
+
+def _grad_error(got, ref, what: str) -> dict:
+    """A backward output's max error against the plain backward, and its
+    largest ratio to the per-element limit; raises past the limit."""
+    tol = BWD_REL_TOL * max(1.0, float(ref.float().abs().max()))
+    if ref.dtype == torch.bfloat16:
+        tol = tol + BF16_STEP * ref.float().abs()
+    diff = (got.float() - ref.float()).abs()
+    ratio = float((diff / tol).max())
+    check(got.dtype == ref.dtype and got.shape == ref.shape and ratio <= 1.0,
+          f"{what}: max error {float(diff.max())}, {ratio} of its limit")
+    return {"max_abs_err": float(diff.max()), "err_over_tol": ratio}
+
+
+def _flash_bwd_case(dev, b, s, hq, hkv, dh, dtype, rng, window=0, arch=None):
+    """The backward kernels against the plain backward on the forward
+    kernel's own output and lse: dq, dk and dv each within its limit, a
+    repeat bit-identical; timed beside SDPA's backward of the same function
+    (its graph kept, the backward alone timed)."""
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((b, s, h, dh)),
+                                   dtype=torch.float32, device=dev).to(dtype)
+                   for h in (hq, hkv, hkv, hq))
+    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window,
+                                 return_lse=True)
+    fn = functools.partial(flash_attention_bwd, q, k, v, o, lse, do,
+                           causal=True, window=window)
+    got = fn()
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                  window=window)
+    what = f"flash bwd {dtype} {b}x{s} {hq}/{hkv}x{dh} window={window}"
+    errs = {name: _grad_error(g, r, f"{what} {name}")
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    check(all(torch.equal(a, c) for a, c in zip(got, fn())),
+          f"{what}: a repeat differs")
+    del ref
+    lib, inputs = _sdpa_call(q, k, v, window, grad=True)
+    with torch.enable_grad():
+        out = lib()
+    dot = do.transpose(1, 2).contiguous()
+
+    def lib_bwd():
+        return torch.autograd.grad(out, inputs, dot, retain_graph=True)
+
+    row = {"kernel": "flash_attention_bwd", "arch": arch,
+           "shape_q": list(q.shape), "shape_kv": list(k.shape),
+           "window": window, "dtype": str(dtype)[6:], "errors": errs,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "err_over_tol": max(e["err_over_tol"] for e in errs.values()),
+           "tol": f"{BWD_REL_TOL} * max|ref|" + (
+               " + 2**-7 * |ref|" if dtype == torch.bfloat16 else ""),
+           "ms": time_ms(fn, 10),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
+               q, k, v, o, lse, do, causal=True, window=window), 3),
+           "library_ms": time_ms(lib_bwd, 10)}
+    row["device_ms"] = device_ms(fn, iters=5)
+    row["device_ms_by_kernel"] = {
+        name[:40]: us / 1e3 for name, us in per_call_us(
+            _profile(lambda: [fn() for _ in range(5)]), 5).items()}
+    row["library_device_ms"] = device_ms(lib_bwd, iters=5)
+    row.update(flash_bwd_bound(b, s, hq, hkv, dh, dtype, window))
+    del out, inputs
+    return row
 
 
 def _decode_case(dev, smax, hq, hkv, dh, kv_len, dtype, rng, window=0,
@@ -820,7 +1171,8 @@ def _rglru_case(dev, case, b, s, c, dtype, slow, rng):
 def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes
     (``cfg`` the dense model, ``scfg`` the SSM model, ``hcfg`` the hybrid;
-    ``launches`` by arch, the claim phase's under None); returns the
+    ``launches`` by arch, the claim phase's under None, the train run's
+    under "<arch> train"); returns the
     ``{"kernels": [...]}`` record: one entry per kernel and model that
     launches it, with that run's launches and the time and bound of the
     shape it gives the kernel."""
@@ -835,6 +1187,22 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         rows.append(_flash_case(dev, 1000, hq, hkv, dh, dtype, rng,
                                 arch=cfg.name))
+    # the train path (qwen2-0.5b, bf16, batch 8 x 2048): the forward with
+    # its lse, the backward, and the backward at a ragged S in fp32, at
+    # glm4-9b's heads (32/2 of 128) and windowed; the claim kernel at the
+    # train run's queue (6 tasks, 2 workers)
+    train = f"{cfg.name} train"
+    rows.append(_flash_case(dev, 2048, hq, hkv, dh, torch.bfloat16, rng,
+                            arch=train, b=8, lse=True))
+    for b, s, bhq, bhkv, bdh, dtype, win in (
+            (8, 2048, hq, hkv, dh, torch.bfloat16, 0),
+            (1, 1031, hq, hkv, dh, torch.float32, 0),
+            (1, 1024, 32, 2, 128, torch.bfloat16, 0),
+            (1, 2048, hq, hkv, dh, torch.float32, 700)):
+        rows.append(_flash_bwd_case(dev, b, s, bhq, bhkv, bdh, dtype, rng,
+                                    window=win, arch=train if b == 8
+                                    else None))
+    rows.append({**_claim_case(dev, 6, 2, 1, rng), "arch": train})
     for kv_len in (1, 1000, 1031, 4096):
         rows.append(_decode_case(dev, 4096, hq, hkv, dh, kv_len,
                                  torch.bfloat16, rng, arch=cfg.name))
@@ -874,6 +1242,9 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
     main_shape = [  # (kernel, arch, the row of the shape it sees there)
         ("wq_claim", None, lambda r: r["n"] == 100_000
          and r["workers"] == 936 and r["k"] == 1),
+        ("wq_claim", train, lambda r: r.get("arch") == train),
+        ("flash_attention", train, lambda r: r["arch"] == train),
+        ("flash_attention_bwd", train, lambda r: r["arch"] == train),
         ("flash_attention", cfg.name, lambda r: r["arch"] == cfg.name
          and r["dtype"] == "float32"),
         ("flash_attention", hcfg.name, lambda r: r["arch"] == hcfg.name
@@ -926,6 +1297,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_hybrid_check(hcfg, dev)
     launches[None] = phase_claim(dev)["launches"]
+    train = phase_train(cfg, dev)
+    launches[f"{cfg.name} train"] = train["result"]["launches"]
+    phase_train_profile(train["executor"])
+    train["executor"].close()
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_check(cfg, dev)
     kernels = phase_kernels(cfg, scfg, hcfg, dev, launches)
     print(smi, flush=True)
     emit(kernels)

@@ -60,6 +60,15 @@
 // - Softmax in fp32: running max and sum per row in registers, 2^x on the
 //   special-function unit with the scale folded into log2(e) * scale; a row
 //   with nothing visible yet keeps alpha 1 and p 0 (inf * 0 would be NaN).
+// - The row's log-sum-exp, for the backward (flash_attention_bwd.cu), when
+//   the caller passes an lse buffer [B,Hq,S] (widths 64 and 128, the
+//   backward's): the softmax above runs in base 2 on scale log2(e) q.k, so
+//   after the merge of the two key halves the natural-log LSE of scale q.k
+//   is (m + log2 l) ln 2; a row with no visible key gets +inf, so that the
+//   backward's exp(s - lse) is 0 there. It is a template flag: the serve
+//   path passes null and runs the instantiation without it, whose code is
+//   that of the forward alone (a runtime test cost it ~1% and a spill at
+//   width 256).
 #include "common.cuh"
 
 namespace {
@@ -68,6 +77,7 @@ constexpr int kBQ = 64;        // query rows per tile
 constexpr int kWarps = 8;      // 4 row groups of 16 x 2 key halves
 constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr size_t kMaxSmem = 232448;
 
 // per (type, width): K/V rows per tile, the row pitches (elements) of the
@@ -341,11 +351,12 @@ __device__ __forceinline__ void pv_bf16(const unsigned (&ph)[NT][2],
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, T* __restrict__ o, int sq, int skv, int hq,
-       int hkv, int dh, int causal, int window, float scale, int vec) {
+       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+       int sq, int skv, int hq, int hkv, int dh, int causal, int window,
+       float scale, int vec) {
   using C = Cfg<T, HD>;
   constexpr int BK = C::BK;
   constexpr int NT = BK / 16;   // 8-key n-tiles of a warp's key half
@@ -568,7 +579,14 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const float mm = fmaxf(m[i], m1);
       a0[i] = mm == -INFINITY ? 0.f : exp2f(m[i] - mm);
       a1[i] = mm == -INFINITY ? 0.f : exp2f(m1 - mm);
-      inv[i] = 1.f / fmaxf(l[i] * a0[i] + l1 * a1[i], 1e-30f);
+      const float lsum = l[i] * a0[i] + l1 * a1[i];
+      inv[i] = 1.f / fmaxf(lsum, 1e-30f);
+      if constexpr (kLse) {
+        const int qi = q0 + r0 + gid + 8 * i;
+        if (tig == 0 && qi < sq)
+          lse[((size_t)b * hq + h) * sq + qi] =
+              mm == -INFINITY ? INFINITY : (mm + log2f(lsum)) * kLn2;
+      }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -588,55 +606,67 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int skv, int hq, int hkv, int dh, int causal, int window,
-           float scale, cudaStream_t stream) {
+template <typename T, int HD, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int skv, int hq, int hkv, int dh, int causal,
+           int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = Cfg<T, HD>::smem;
   cudaError_t e = cudaFuncSetAttribute(
-      fa_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd<T, HD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int vec = dh % (16 / (int)sizeof(T)) == 0 &&
                   ((size_t)q | (size_t)k | (size_t)v) % 16 == 0;
   const int nq = (sq + kBQ - 1) / kBQ;
   dim3 grid((nq + 1) / 2, b * hq);
-  fa_fwd<T, HD><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, hq, hkv, dh,
+  fa_fwd<T, HD, kLse><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, skv, hq, hkv, dh,
       causal, window, scale, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int b,
-              int sq, int skv, int hq, int hkv, int dh, int causal,
+int launch_dh(const void* q, const void* k, const void* v, void* o, float* lse,
+              int b, int sq, int skv, int hq, int hkv, int dh, int causal,
               int window, float scale, cudaStream_t s) {
+  if (lse != nullptr) {
+    if (dh <= 64)
+      return launch<T, 64, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
+                                 causal, window, scale, s);
+    if (dh <= 128)
+      return launch<T, 128, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
+                                  causal, window, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, b, sq, skv, hq, hkv, dh, causal, window,
-                         scale, s);
+    return launch<T, 64, false>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
+                                causal, window, scale, s);
   if (dh <= 128)
-    return launch<T, 128>(q, k, v, o, b, sq, skv, hq, hkv, dh, causal,
-                          window, scale, s);
+    return launch<T, 128, false>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
+                                 causal, window, scale, s);
   if (dh <= 256)
-    return launch<T, 256>(q, k, v, o, b, sq, skv, hq, hkv, dh, causal,
-                          window, scale, s);
+    return launch<T, 256, false>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
+                                 causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// lse: null, or [B,Hq,S] fp32 for the rows' natural-log log-sum-exp (dh
+// <= 128)
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int b, int sq,
-                                      int skv, int hq, int hkv, int dh,
-                                      int causal, int window, float scale,
-                                      int dtype, void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int b, int sq, int skv, int hq, int hkv,
+                                      int dh, int causal, int window,
+                                      float scale, int dtype, void* stream) {
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == repro::kFloat32)
-    return launch_dh<float>(q, k, v, o, b, sq, skv, hq, hkv, dh, causal,
+    return launch_dh<float>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh, causal,
                             window, scale, s);
   if (dtype == repro::kBFloat16)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, b, sq, skv, hq, hkv, dh,
+    return launch_dh<__nv_bfloat16>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
                                     causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

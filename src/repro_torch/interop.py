@@ -21,7 +21,7 @@ imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -85,3 +85,76 @@ def load_jax_params(model: nn.Module, tree_or_flat: Mapping[str, Any]
     with torch.no_grad():
         model.load_state_dict(params_from_jax(tree_or_flat), strict=True)
     return model
+
+
+def jax_key(name: str, tensor: torch.Tensor) -> Tuple[str, bool]:
+    """The reference's ``/``-joined key of the leaf that the port's
+    parameter ``name`` is (one layer of, for a stacked leaf), and whether
+    the port keeps it transposed (the 2-D ``w`` of a stacked leaf); the
+    inverse of :func:`params_from_jax`'s naming."""
+    parts = name.split(".")
+    if parts[0] in _STACKED:
+        rest = parts[2:]
+        leaf = {"weight": "w", "bias": "b"}.get(rest[-1], rest[-1])
+        return "/".join([parts[0], *rest[:-1], leaf]), \
+            leaf == "w" and tensor.dim() == 2
+    leaf = {"weight": "table", "bias": "b"}.get(parts[-1], parts[-1])
+    return "/".join([*parts[:-1], leaf]), False
+
+
+def is_stacked(key: str) -> bool:
+    """Whether the reference's leaf ``key`` carries a leading layer axis."""
+    return key.split("/")[0] in _STACKED
+
+
+def reference_leaves(params: nn.Module
+                     ) -> Dict[str, List[Tuple[str, bool]]]:
+    """The reference's leaves as groups of the port's parameters: its key ->
+    ``[(port name, transposed), ...]``, the layers of a stacked leaf in
+    order (one entry for a leaf that is not stacked). A statistic that the
+    reference takes over a whole leaf (Adafactor's factored moments, its
+    update's RMS, int8 compression's scale) is taken over the group."""
+    groups: Dict[str, List[Tuple[str, bool]]] = {}
+    for name, p in params.named_parameters():
+        key, transposed = jax_key(name, p)
+        groups.setdefault(key, []).append((name, transposed))
+    return groups
+
+
+def opt_state_from_jax(cfg, opt_state: Mapping[str, Any], params: nn.Module
+                       ) -> Dict[str, Any]:
+    """The reference's optimizer state (``init_opt`` / ``apply_updates``'s
+    ``{"step", "inner"}``, as numpy arrays) as the port's, on the params'
+    device: AdamW's ``m`` and ``v`` are trees like the params and map as
+    they do; Adafactor's ``vr`` / ``vc`` / ``v`` stay in the reference's
+    layout, keyed by its leaf (see ``optim/adafactor.py``)."""
+    dev = next(params.parameters()).device
+    inner = opt_state["inner"]
+    if cfg.optimizer == "adafactor":
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for key, arr in flatten(inner).items():
+            leaf, stat = key.rsplit("/", 1)
+            out.setdefault(leaf, {})[stat] = _tensor(arr).to(dev)
+    else:
+        out = {mom: {n: t.to(dev) for n, t in
+                     params_from_jax(inner[mom]).items()}
+               for mom in ("m", "v")}
+    return {"step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "inner": out}
+
+
+def train_state_from_jax(cfg, state: Mapping[str, Any], params: nn.Module
+                         ) -> Dict[str, Any]:
+    """The reference's train state (``{"params", "opt", "err"?}``, numpy)
+    as the port's: ``params`` (the port's module) loaded with its params,
+    the optimizer state by :func:`opt_state_from_jax`, compression's error
+    feedback ``err`` mapped as the params are."""
+    load_jax_params(params, state["params"])
+    out = {"params": params,
+           "opt": opt_state_from_jax(cfg, state["opt"], params)}
+    if "err" in state:
+        dev = next(params.parameters()).device
+        out["err"] = {n: t.to(dev)
+                      for n, t in params_from_jax(state["err"]).items()}
+    return out

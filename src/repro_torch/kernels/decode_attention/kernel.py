@@ -60,6 +60,8 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card (read by the kernel, so no host sync). Contiguous, one dtype
     (fp32 or bf16), dh <= 256. ``window > 0`` also masks the positions below
     ``kv_len - window``."""
+    library.refuse_grad("decode_attention", q, k, v,
+                        item="decode is serve-only; " + library.TRAINING_ITEM)
     library.require_cuda("decode_attention", q, k, v, kv_len)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in library.DTYPE_CODES:
         raise TypeError(f"decode_attention: q/k/v must share dtype float32 or "

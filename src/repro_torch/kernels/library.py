@@ -43,7 +43,8 @@ _SIGNATURES = {
     "wq_claim_scratch_ints": ([_I, _I], ctypes.c_longlong),
     "wq_claim_empty_launch": ([_I, _I, _P], _I),
     "flash_attention_launch": (
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+    "flash_attention_bwd_launch": ([_P] * 10 + [_I] * 8 + [_F, _I, _P], _I),
     "decode_attention_launch": (
         [_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
     "decode_attention_scratch_floats": ([_I] * 5, ctypes.c_longlong),
@@ -150,6 +151,20 @@ def launch(name: str, *args) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """Handle of the current stream on ``t``'s device, as an int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor, item: str) -> None:
+    """Raise when grad mode is on and an input requires grad: a launcher's
+    output has no gradient path, so autograd would drop the gradient
+    without a word. ``item`` says where the gradient comes from instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: forward-only launcher given inputs that require grad; "
+            f"its output would carry no gradient ({item})")
+
+
+TRAINING_ITEM = ("backward kernels for it: ROADMAP Queue 1, SSM and hybrid "
+                 "training")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

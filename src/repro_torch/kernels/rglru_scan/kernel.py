@@ -15,6 +15,8 @@ def rglru_scan_fwd(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """a, u: [B,S,C], contiguous CUDA tensors of one dtype (fp32 or bf16),
     computed in fp32. Returns h [B,S,C] in a's dtype, h_t = a_t h_{t-1} +
     u_t with h_0 = 0. Any B, S and C (no padding)."""
+    library.refuse_grad("rglru_scan", a, u,
+                        item=library.TRAINING_ITEM)
     library.require_cuda("rglru_scan", a, u)
     if a.dtype != u.dtype or a.dtype not in library.DTYPE_CODES:
         raise TypeError(f"rglru_scan: a and u must share dtype float32 or "

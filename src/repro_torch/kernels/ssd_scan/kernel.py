@@ -22,6 +22,8 @@ def ssd_scan_fwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     [BH,S,1]); contiguous CUDA tensors of one dtype (fp32 or bf16), computed
     in fp32. Returns (y [BH,S,P] in x's dtype, final state [BH,P,N] fp32).
     A ragged last chunk is masked, which equals zero-dt padding."""
+    library.refuse_grad("ssd_scan", x, bmat, cmat, dt, da,
+                        item=library.TRAINING_ITEM)
     library.require_cuda("ssd_scan", x, bmat, cmat, dt, da)
     dtypes = {x.dtype, bmat.dtype, cmat.dtype, dt.dtype, da.dtype}
     if len(dtypes) != 1 or x.dtype not in library.DTYPE_CODES:

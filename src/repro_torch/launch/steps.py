@@ -1,21 +1,38 @@
-"""Serve step builders (the decode and prefill halves of the reference's
-``launch/steps.py``; the train half comes with the training slice).
+"""Train and serve step builders (the reference's ``launch/steps.py``).
 
-The reference casts the fp32 master params to ``cfg.dtype`` inside every
-serve step. Here the caller holds one copy of the params in ``cfg.dtype``
-(:func:`cast_params`, made once) and passes it to the step, which computes
-the same thing without a cast per token.
+Train: ``make_train_step(cfg)`` returns ``(state, batch, knobs) ->
+(state, metrics)``. The loss and its gradients are computed at
+``cfg.dtype`` against the fp32 master params: the masters are cast by a
+differentiable ``p.to(cfg.dtype)`` put in place with
+``torch.func.functional_call`` (the reference's ``_cast_params_pinned``), so
+the gradients land on the masters, the tied table's two uses summed. Then
+the step accumulates microbatches, clips by the global norm (folded into
+the update as ``gscale``), optionally int8-compresses the gradients with
+error feedback, and applies AdamW or Adafactor. The state's tensors are
+updated in place (the reference returns new arrays) and the same state is
+returned.
+
+Serve: the reference casts the fp32 master params to ``cfg.dtype`` inside
+every serve step. Here the caller holds one copy of the params in
+``cfg.dtype`` (:func:`cast_params`, made once) and passes it to the step,
+which computes the same thing without a cast per token.
 """
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.interop import reference_leaves
+from repro_torch.models import transformer as T
 from repro_torch.models.registry import build_model
+from repro_torch.optim import apply_updates, init_opt
+from repro_torch.optim.clipping import global_norm
+from repro_torch.optim.compression import compress_grads, init_error
 
 
 def copy_params(params: nn.Module, fn) -> nn.Module:
@@ -76,3 +93,117 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
         return torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32), cache
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def loss_and_grads(cfg: ModelConfig, params: nn.Module,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor]]:
+    """(loss, metrics, grads): ``train_loss`` on the master ``params`` cast
+    to ``cfg.dtype`` and its gradients with respect to the masters, by
+    parameter name. The backward runs inside the ``functional_call``, so
+    that remat's recompute reads the casts too."""
+    model = build_model(cfg)
+    dt = getattr(torch, cfg.dtype)
+    names, masters = zip(*params.named_parameters())
+
+    def run(lm, b):
+        loss, metrics = model.train_loss(lm, b)
+        grads = torch.autograd.grad(loss, masters)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            dict(zip(names, grads))
+
+    cast = {n: p.to(dt) if p.is_floating_point() else p
+            for n, p in zip(names, masters)}
+    with torch.enable_grad():
+        return functional_call(params, cast, (run, batch))
+
+
+def _micro(batch: Dict[str, torch.Tensor], mb: int, i: int):
+    """Microbatch ``i`` of ``mb``: rows [i B/mb, (i + 1) B/mb) of every
+    input (the reference's ``[B] -> [mb, B/mb]`` reshape)."""
+    out = {}
+    for k, x in batch.items():
+        if x.shape[0] % mb:
+            raise ValueError(f"batch {k} {tuple(x.shape)} does not split "
+                             f"into {mb} microbatches")
+        n = x.shape[0] // mb
+        out[k] = x[i * n:(i + 1) * n]
+    return out
+
+
+def make_train_step(cfg: ModelConfig, grad_compression: bool = False):
+    """(state, batch, knobs) -> (state, metrics).
+
+    state = {"params": the master module, "opt", "err"?}; batch = {"tokens",
+    "labels"} [B,S] on the params' device; knobs = {"lr": float}. The SSM
+    and hybrid families raise here (ROADMAP Queue 1)."""
+    build_model(cfg)              # raises for the families not ported
+    if cfg.family not in T.TRAINABLE:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
+            f"yet: {T.TRAINING_ITEM}")
+
+    def step(state, batch, knobs):
+        params = state["params"]
+        mb = max(1, cfg.microbatches)
+        if mb == 1:
+            loss, metrics, grads = loss_and_grads(cfg, params, batch)
+        else:
+            # gradient accumulation: one microbatch's activations at a time
+            grads, losses, mets = None, [], []
+            for i in range(mb):
+                l_, m_, g_ = loss_and_grads(cfg, params, _micro(batch, mb, i))
+                grads = g_ if grads is None else \
+                    {n: grads[n] + g for n, g in g_.items()}
+                losses.append(l_)
+                mets.append(m_)
+            grads = {n: g / mb for n, g in grads.items()}
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in mets]).mean()
+                       for k in mets[0]}
+        with torch.no_grad():
+            gnorm = global_norm(grads)
+            gscale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12),
+                                 max=1.0)
+            if grad_compression:
+                grads, new_err = compress_grads(grads, state["err"],
+                                                reference_leaves(params))
+            params, new_opt, stats = apply_updates(
+                cfg, params, grads, state["opt"], knobs["lr"], gscale=gscale)
+        out = {"params": params, "opt": new_opt}
+        if grad_compression:
+            out["err"] = new_err
+        return out, dict(metrics, loss=loss, grad_norm=gnorm, **stats)
+
+    return step
+
+
+def init_train_state(cfg: ModelConfig, gen: torch.Generator,
+                     grad_compression: bool = False) -> Dict[str, Any]:
+    """Master params from ``gen`` (on its device) and a fresh optimizer
+    state; ``err`` (zeros) with ``grad_compression``."""
+    params = build_model(cfg).init(gen).requires_grad_(True)
+    state = {"params": params, "opt": init_opt(cfg, params)}
+    if grad_compression:
+        state["err"] = init_error(params)
+    return state
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so that ``init_params``
+    builds its tensors there (no storage; the draws do nothing)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_train_state(cfg: ModelConfig, grad_compression: bool = False
+                         ) -> Dict[str, Any]:
+    """The train state's shapes and dtypes on the meta device: nothing is
+    allocated (the reference's ``jax.eval_shape`` dry run)."""
+    return init_train_state(cfg, _MetaGenerator(), grad_compression)

@@ -3,10 +3,12 @@ no-cache, linear-cache and ring-buffer branches of the reference.
 
 The compute core (:func:`_sdpa`) chooses by the tensors' device. A CUDA
 tensor always goes to a hand-written kernel: a 1-token query against the
-cache to the decode kernel (with the window, if any), a prefill from
-position 0 with no cache tail (of any length, one token included) to the
-flash kernel, and any other shape raises. A CPU tensor goes to
-:func:`sdpa_ref`. The ring-buffer branch (sliding-window decode against a
+cache to the decode kernel (with the window, if any), a prefill or a
+training pass from position 0 with no cache tail (of any length, one token
+included) to the flash kernel (with grad on, through the autograd function
+whose backward is the flash backward kernel), and any other shape raises.
+A CPU tensor goes to :func:`sdpa_ref`, which plain autograd
+differentiates. The ring-buffer branch (sliding-window decode against a
 cache of exactly ``window`` slots) goes to the decode kernel's dispatcher on
 both devices (see :func:`attention`). ``cfg.attn_impl`` does not select the
 attention path in this port.

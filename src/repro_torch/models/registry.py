@@ -2,8 +2,9 @@
 
 ``build_model(cfg)`` returns a ``Model`` bundle of functions, as the
 reference's registry does; the executor invokes them per task. The dense,
-SSM and hybrid families are ported; the others raise, naming the ROADMAP
-item that brings them.
+SSM and hybrid families are ported for serving; the others raise, naming the
+ROADMAP item that brings them. ``train_loss`` is ported for the dense
+family; for the SSM and hybrid families it raises, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ class Model(NamedTuple):
     init: Callable[[torch.Generator], Any]
     prefill: Callable[[Any, Dict[str, Any], int], Tuple[torch.Tensor, Any]]
     decode_step: Callable[[Any, torch.Tensor, Any], Tuple[torch.Tensor, Any]]
+    train_loss: Callable[[Any, Dict[str, Any]], Tuple[torch.Tensor, Any]]
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -39,4 +41,5 @@ def build_model(cfg: ModelConfig) -> Model:
         init=lambda gen: T.init_params(cfg, gen),
         prefill=lambda p, b, m: T.prefill(cfg, p, b, m),
         decode_step=lambda p, t, c: T.decode_step(cfg, p, t, c),
+        train_loss=lambda p, b: T.train_loss(cfg, p, b),
     )

@@ -25,14 +25,21 @@ branch to fp32, so the layer scan's carry changes dtype: a ``TypeError``).
 Its dense prefill casts its K/V to ``cfg.dtype`` the same way. In fp32 the
 two agree exactly.
 
-The MoE, VLM and enc-dec families come with later slices.
+Training (:func:`train_loss`) is ported for the dense family: the layer
+loop with one ``torch.utils.checkpoint`` per layer when ``cfg.remat`` (the
+reference's ``jax.checkpoint`` of the scan body) and the sequence-chunked
+cross-entropy (:func:`chunked_xent`). The SSM and hybrid families' training
+needs backward kernels for the SSD and RG-LRU scans (ROADMAP Queue 1). The
+MoE, VLM and enc-dec families come with later slices.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (FAMILY_DENSE, FAMILY_HYBRID, FAMILY_SSM,
                                       ModelConfig)
@@ -76,6 +83,9 @@ class RecBlock(nn.Module):
 _BLOCKS = {FAMILY_DENSE: AttnBlock, FAMILY_SSM: SSMBlock}
 _KINDS = {"rec": RecBlock, "attn": AttnBlock}
 PORTED = (FAMILY_DENSE, FAMILY_SSM, FAMILY_HYBRID)
+TRAINABLE = (FAMILY_DENSE,)
+TRAINING_ITEM = ("ROADMAP Queue 1, SSM and hybrid training (backward kernels "
+                 "for ssd_scan and rglru_scan)")
 
 
 def hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
@@ -108,6 +118,12 @@ class DecoderLM(nn.Module):
         block = _BLOCKS[cfg.family]
         self.layers = nn.ModuleList(
             block(gen, cfg, dtype) for _ in range(cfg.num_layers))
+
+    def forward(self, fn, *args):
+        """``fn(self, *args)``: lets ``torch.func.functional_call`` run any
+        of this module's functions with its parameters replaced (the train
+        step runs the loss on their casts to ``cfg.dtype``)."""
+        return fn(self, *args)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> DecoderLM:
@@ -188,6 +204,75 @@ def _run_stack(cfg: ModelConfig, params: DecoderLM, x, *, positions,
 
 def _head_table(cfg: ModelConfig, params: DecoderLM) -> nn.Embedding:
     return params.embed if cfg.tie_embeddings else params.head
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def _train_block(cfg: ModelConfig, positions, lp: AttnBlock, x):
+    return _attn_block(lp, x, cfg, positions=positions)[0]
+
+
+def _run_stack_train(cfg: ModelConfig, params: DecoderLM, x, *, positions):
+    """The layers without caches, each under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` (its activations are recomputed in the backward, as
+    ``_maybe_ckpt`` has XLA do). The recompute reads the layer's params
+    from the module again, so the backward must run while any parameter
+    replacement (``functional_call``) is still in place."""
+    for lp in params.layers:
+        fn = functools.partial(_train_block, cfg, positions, lp)
+        x = checkpoint(fn, x, use_reentrant=False,
+                       preserve_rng_state=False) if cfg.remat else fn(x)
+    return x
+
+
+def _xent_chunk(xi: torch.Tensor, table: torch.Tensor, li: torch.Tensor):
+    logits = (xi @ table.T).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_xent(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """Sequence-chunked mean cross-entropy. x: [B,S,D]; labels: [B,S].
+
+    Never keeps [B,S,V]: each chunk's logits are computed under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body)``)
+    and again in the backward, so the peak is [B,chunk,V]. S must be a
+    multiple of the chunk, as the reference's reshape needs."""
+    b, s, _ = x.shape
+    chunk = min(cfg.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked_xent: seq_len {s} is not a multiple of "
+                         f"loss_chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        tot = tot + checkpoint(_xent_chunk, x[:, c:c + chunk], table,
+                               labels[:, c:c + chunk], use_reentrant=False,
+                               preserve_rng_state=False)
+    return tot / (b * s)
+
+
+def train_loss(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(mean next-token loss, {"loss", "aux_loss"}) of ``batch`` (tokens and
+    labels [B,S]) in the params' dtype, the dense family only. The tied
+    table's gradient sums its use as the embedding and as the head."""
+    if cfg.family not in TRAINABLE:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
+            f"yet: {TRAINING_ITEM}")
+    x = params.embed(batch["tokens"])
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    x = _run_stack_train(cfg, params, x, positions=positions)
+    x = params.final_norm(x)
+    loss = chunked_xent(cfg, x, _head_table(cfg, params).weight,
+                        batch["labels"])
+    return loss, {"loss": loss,
+                  "aux_loss": torch.zeros((), dtype=torch.float32,
+                                          device=x.device)}
 
 
 # ---------------------------------------------------------------------------

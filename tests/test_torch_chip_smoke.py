@@ -1,6 +1,7 @@
 """Rehearsal of chip_smoke.py on the CPU at smoke size: its serve, serve
-check and claim phases run the port's plain versions here (the kernel phase
-needs the card), and main() refuses to run without a card."""
+check, claim, train and train check phases run the port's plain versions
+here (the kernel phase and the profiles need the card), and main() refuses
+to run without a card."""
 import importlib.util
 import json
 import pathlib
@@ -137,6 +138,68 @@ def test_claim_phase_reports_wall_ms_on_cpu(chip_smoke):
     assert sorted(walls) == ["device", "host"]
     assert all(len(v) == 2 * 3 and min(v) > 0 for v in walls.values())
     assert res["kernel_device_ms"] is None
+
+
+def test_train_phases_on_cpu(chip_smoke, capsys):
+    """The train phase (smoke qwen2 with remat, device claims through the
+    claim op's plain version) and the card-vs-CPU train check, run CPU
+    against CPU here: equal to the bit."""
+    import dataclasses
+    cfg = dataclasses.replace(smoke_config("qwen2-0.5b"), remat=True)
+    train = chip_smoke.phase_train(cfg, "cpu", steps=4, workers=2,
+                                   seq_len=32, batch=4)
+    ex = train["executor"]
+    ex.close()
+    res = train["result"]
+    assert res["steps"] == 4 and len(res["losses"]) == 4
+    assert res["launches"] == {"flash_attention": 0,
+                               "flash_attention_bwd": 0, "wq_claim": 0}
+    assert res["peak_mem_bytes"] is None and res["seconds"] > 0
+    check = chip_smoke.phase_train_check(cfg, "cpu", batch=2, seq_len=64)
+    assert check["loss"][0] == check["loss"][1]
+    assert check["max_grad_err_over_largest"] == 0.0
+    assert "layers.0.mlp.down.weight" in check["params"]
+    assert all(p["max_abs_err"] == 0.0 for p in check["params"].values())
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == ["train", "train_check"]
+
+
+def test_train_launch_counts_of_the_full_config(chip_smoke):
+    """qwen2-0.5b, 6 steps on 2 workers: 24 layers x 6 steps, the forward
+    twice (remat recomputes it in the backward), 3 claim ticks."""
+    from repro_torch.configs import get_config
+    assert chip_smoke.train_launches(get_config("qwen2-0.5b"), 6, 3) == {
+        "flash_attention": 288, "flash_attention_bwd": 144, "wq_claim": 3}
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,dh,window,dtype", [
+    (8, 2048, 14, 2, 64, 0, "bfloat16"),     # qwen2-0.5b's train shape
+    (1, 1031, 14, 2, 64, 0, "float32"),
+    (1, 2048, 14, 2, 64, 700, "float32"),
+])
+def test_flash_bwd_bound_counts_the_functions_work(chip_smoke, b, s, hq, hkv,
+                                                    dh, window, dtype):
+    """10 dh Hq operations per visible pair and batch row at the dtype's
+    peak (fp32 FMA 67, bf16 989 TFLOP/s), against q, k, v, o, dO, dq, dk,
+    dv moved once."""
+    dt = getattr(torch, dtype)
+    ops = 10.0 * b * chip_smoke.flash_pairs(s, window) * dh * hq
+    bnd = chip_smoke.flash_bwd_bound(b, s, hq, hkv, dh, dt, window)
+    peak = 989e12 if dt == torch.bfloat16 else 67e12
+    assert bnd["ops"] == ops and bnd["bound_by"] == "operations"
+    assert bnd["bound_ms"] == pytest.approx(ops / peak * 1e3)
+    elt = 2 if dt == torch.bfloat16 else 4
+    assert bnd["bytes"] == elt * b * s * dh * 4 * (hq + hkv)
+
+
+def test_profile_records_lost_are_counted(chip_smoke):
+    """A profile of 2 calls (the serve and train profiles): a kernel whose
+    records are not a multiple of 2 lost some, reported by name, and its
+    time per call is counted whole."""
+    kernels = {"fa": (300.0, 3), "gemm": (400.0, 4)}
+    assert chip_smoke.records_lost(kernels, 2) == {"fa": 1}
+    assert chip_smoke.per_call_us(kernels, 2) == {"fa": 200.0,
+                                                   "gemm": 200.0}
 
 
 def test_main_refuses_without_a_card(chip_smoke, capsys):

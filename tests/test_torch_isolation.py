@@ -55,3 +55,20 @@ def test_port_serves_with_jax_blocked():
     assert "served 3 qwen2-0.5b" in out.stdout
     assert "served 3 mamba2-1.3b" in out.stdout
     assert "served 3 recurrentgemma-9b" in out.stdout
+
+
+def test_port_trains_with_jax_blocked():
+    """``python -m repro_torch.launch.train`` with jax and the reference
+    unimportable: two store-driven steps of the smoke qwen2 on the CPU."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.launch import train\n"
+        "train.main(['--arch', 'qwen2-0.5b', '--smoke', '--device', 'cpu',\n"
+        "            '--steps', '2', '--workers', '2'])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "trained 2 steps on cpu" in out.stdout

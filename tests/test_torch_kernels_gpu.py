@@ -396,6 +396,7 @@ def test_dispatch_launches_kernels_or_raises(dev):
     _sdpa(q[:, :1], q, q, causal=True, window=2, q_offset=3,
           kv_len=torch.tensor([4], dtype=torch.int32, device=dev))
     assert launch_counts() == {"wq_claim": 1, "flash_attention": 2,
+                               "flash_attention_bwd": 0,
                                "decode_attention": 2, "ssd_scan": 1,
                                "rglru_scan": 1}
     with pytest.raises(TypeError):

@@ -52,13 +52,14 @@ Phases, each printing JSON lines:
      launched as it is launched, the floor of one launch, with the
      operations a call puts on the card by the profiler: one kernel; the
      decode attention's and SSD scan's both back to back and flushed, beside
-     SDPA's in the same two modes; the fp32 SSD scan and flash attention
-     held against three TF32 products per product, their route, with the
-     fp32-FMA bound beside it; the flash forward with its row log-sum-exp
-     and the flash backward at the train shape, the backward also at a
-     ragged S in fp32, at glm4-9b's heads and windowed, each of dq, dk and
-     dv within its limit and a repeat bit-identical, beside SDPA's backward
-     and the function's bound), then one ``{"kernels": [...]}`` line:
+     SDPA's in the same two modes; the fp32 SSD scan and flash attention,
+     forward and backward, held against three TF32 products per product,
+     their route, with the fp32-FMA bound beside it; the flash forward with
+     its row log-sum-exp and the flash backward at the train shape, the
+     backward also at a ragged S in fp32, at glm4-9b's heads and windowed,
+     each of dq, dk and dv within its limit and a repeat bit-identical,
+     beside SDPA's backward and the function's bound), then one
+     ``{"kernels": [...]}`` line:
      one entry per kernel and model that launches it, with that serve run's
      launches and the device times of the kernel and of its library call.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises:
@@ -151,7 +152,7 @@ TRAIN_GNORM_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W);
 # "tf32" is the tensor cores' TF32 rate, which the 3xTF32 products of the
-# SSD scan and of the fp32 flash attention run at
+# SSD scan and of the fp32 flash attention (forward and backward) run at
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12,
             "tf32": 495e12}
@@ -898,13 +899,18 @@ def flash_bound(s, hq, hkv, dh, dtype, window=0, b=1) -> dict:
 def flash_bwd_bound(b, s, hq, hkv, dh, dtype, window=0) -> dict:
     """Bound of the attention backward (the function, not the kernel's
     recompute): 10 dh Hq operations per visible (query, key) pair and batch
-    row (S = Q K^T, dP = dO V^T, dV, dK, dQ) at the dtype's peak (fp32: FMA,
-    67 TFLOP/s; bf16: 989), against q, k, v, o and dO read and dq, dk, dv
-    written once."""
+    row (S = Q K^T, dP = dO V^T, dV, dK, dQ), against q, k, v, o and dO read
+    and dq, dk, dv written once. fp32 runs on the kernel's route, three
+    TF32 products per product at the tensor cores' TF32 rate, with the
+    bound of the same work on fp32 FMAs beside it (``bound_before_ms``,
+    what earlier readings were held against); bf16 at its tensor rate."""
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = elt * b * s * dh * 4 * (hq + hkv)
     ops = 10.0 * b * flash_pairs(s, window) * dh * hq
-    return _bound(nbytes, ops, dtype)
+    if dtype != torch.float32:
+        return _bound(nbytes, ops, dtype)
+    return {**_bound(nbytes, 3.0 * ops, "tf32"), "useful_ops": ops,
+            "bound_before_ms": _bound(nbytes, ops, dtype)["bound_ms"]}
 
 
 def _grad_error(got, ref, what: str) -> dict:

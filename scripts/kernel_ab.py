@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the flash attention, decode attention, SSD scan, RG-LRU scan and
-claim kernels of one checkout at the serve path's shapes, so that two
-checkouts can be compared on one card.
+claim kernels of one checkout at the serve path's shapes, and the flash
+backward at the train path's, so that two checkouts can be compared on one
+card.
 
     python scripts/kernel_ab.py --root DIR [--label NAME] [--only K1,K2]
 
@@ -16,8 +17,14 @@ full; a linear cache of 4096 at kv_len 3000 with window 2048) and
 ``ssd_scan_fwd`` (mamba2-1.3b's prefill: S 1000 fp32, ragged S 1031, bf16,
 slow decay at S 4096), ``rglru_scan_fwd`` (recurrentgemma-9b's prefill,
 a and u [1,S,4096]: S 1000 fp32, ragged S 1031, bf16, slow decay at S 4096)
-and ``wq_claim_fwd`` (N 100,000 and 2^18 rows, W 64 and 936 workers, k 1
-and 4). ``--only`` keeps the kernels named (e.g. ``rglru_scan,wq_claim``).
+``wq_claim_fwd`` (N 100,000 and 2^18 rows, W 64 and 936 workers, k 1
+and 4) and ``flash_attention_bwd`` (causal: qwen2-0.5b's train shape q
+[8,2048,14,64] against 2 KV heads in bf16; the same heads at B 1, S 1031 in
+fp32; glm4-9b's heads q [1,1024,32,128] against 2 KV heads in bf16; S 2048,
+window 700 in fp32; each on the checkout's own forward output and LSE, with
+dq, dk and dv held against the checkout's plain backward, the device time
+split by kernel, and SDPA's backward beside the bf16 rows). ``--only``
+keeps the kernels named (e.g. ``rglru_scan,wq_claim``).
 Each case prints one JSON line: CUDA-event ms over back-to-back calls (the
 RG-LRU rows' also with L2 flushed before each call), and the kernels'
 device time (torch.profiler) back to back (warm: inputs stay in L2) and
@@ -68,8 +75,14 @@ RGLRU = [  # (case, seq, dtype, slow decay), lru width 4096
 ]
 CLAIM = [(n, w, k) for n in (100_000, 1 << 18) for w in (64, 936)
          for k in (1, 4)]
+FLASH_BWD = [  # (case, b, s, hq, hkv, dh, dtype, window), causal
+    ("qwen2 train bf16", 8, 2048, 14, 2, 64, torch.bfloat16, 0),
+    ("ragged S 1031 fp32", 1, 1031, 14, 2, 64, torch.float32, 0),
+    ("glm4 heads bf16", 1, 1024, 32, 2, 128, torch.bfloat16, 0),
+    ("S 2048 window 700 fp32", 1, 2048, 14, 2, 64, torch.float32, 700),
+]
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "wq_claim")
+           "wq_claim", "flash_attention_bwd")
 
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -205,6 +218,42 @@ def main() -> None:
                           "ms": timer.time_ms(fn, 200),
                           "device_ms": timer.device_ms(fn, 20)}),
               flush=True)
+    for case, b, s, hq, hkv, dh, dtype, window in (
+            FLASH_BWD if "flash_attention_bwd" in only else []):
+        q, k, v, do = (torch.as_tensor(rng.standard_normal((b, s, h, dh)),
+                                       dtype=torch.float32,
+                                       device=dev).to(dtype)
+                       for h in (hq, hkv, hkv, hq))
+        o, lse = mod.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                         return_lse=True)
+
+        def bwd():
+            return mod.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                           window=window)
+
+        ref = mod.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                          window=window)
+        errs = [mod._grad_error(g, r, f"flash bwd {case} {name}")
+                for name, g, r in zip(("dq", "dk", "dv"), bwd(), ref)]
+        del ref
+        row = {"label": label, "kernel": "flash_attention_bwd", "case": case,
+               "err_over_tol": max(e["err_over_tol"] for e in errs),
+               "ms": timer.time_ms(bwd, 10),
+               "device_ms": timer.device_ms(bwd, 5),
+               "device_ms_by_kernel": {
+                   name[:40]: us / 1e3 for name, us in timer.per_call_us(
+                       timer._profile(lambda: [bwd() for _ in range(5)]),
+                       5).items()}}
+        if dtype == torch.bfloat16:   # the yardstick: SDPA's backward
+            lib, inputs = timer._sdpa_call(q, k, v, window, grad=True)
+            with torch.enable_grad():
+                out = lib()
+            dot = do.transpose(1, 2).contiguous()
+            row["library_device_ms"] = timer.device_ms(
+                lambda: torch.autograd.grad(out, inputs, dot,
+                                            retain_graph=True), 5)
+            del out, inputs
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

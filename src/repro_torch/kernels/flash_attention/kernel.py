@@ -63,14 +63,38 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_fwd.launches = 0
 
 
+# the backward's dK/dV kernel has one block per key tile of BWD_KEY_TILE
+# keys (kTile in csrc/flash_attention_bwd.cu), batch, KV head and run of
+# query heads; it fills an H100 with two blocks for each of its 132 SMs, so
+# that the causal mask's uneven tiles even out
+BWD_KEY_TILE = 64
+BWD_BLOCKS_WANTED = 2 * 132
+
+
+def bwd_heads_per_split(b: int, skv: int, hq: int, hkv: int) -> int:
+    """How many of a group's ``hq // hkv`` query heads one block of the
+    backward's dK/dV kernel walks: all of them when the (key tile, batch, KV
+    head) blocks already number ``BWD_BLOCKS_WANTED``, else g / r rounded
+    up, for the r runs that would bring the blocks up to it (at most one
+    head a block). Rounding up keeps every run but the last equal and the
+    blocks at least half of what was wanted. A pure function of the shapes,
+    at least 1; the last run may be shorter than the others."""
+    g = hq // hkv
+    blocks = max(1, b * hkv * -(-skv // BWD_KEY_TILE))
+    runs = min(g, -(-BWD_BLOCKS_WANTED // blocks))
+    return -(-g // runs)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int = 0):
     """(dq, dk, dv) in q's dtype of the attention whose forward gave ``o``
     and ``lse`` (:func:`flash_attention_fwd` with ``return_lse``), for the
     output gradient ``do``; all contiguous CUDA tensors, q/k/v/o/do of one
-    dtype (fp32 or bf16), lse fp32 [B,Hq,S], dh <= 128. Three kernels on
-    the caller's stream: D = rowsum(do * o), then dk/dv, then dq; no
+    dtype (fp32 or bf16), lse fp32 [B,Hq,S], dh <= 128. Kernels on the
+    caller's stream: D = rowsum(do * o), then dk/dv (with the group's query
+    heads in :func:`bwd_heads_per_split` runs, whose fp32 partials a
+    second kernel adds in order when there is more than one), then dq; no
     atomics, so repeats are bit-identical. Its outputs have no gradient
     path either, so with grad enabled (a double backward) it raises on
     inputs that require grad."""
@@ -89,13 +113,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(b, hq, sq)}, got {lse.dtype} {tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    hps = bwd_heads_per_split(b, skv, hq, hkv)
+    splits = -(-(hq // hkv) // hps)
+    part = torch.empty(2 * splits * b * skv * hkv * dh, dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
     with torch.cuda.device(q.device):
         library.launch("flash_attention_bwd_launch", q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                       dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, dh,
-                       int(bool(causal)), int(window), float(dh ** -0.5),
-                       library.DTYPE_CODES[q.dtype], library.stream_of(q))
+                       lse.data_ptr(), delta.data_ptr(),
+                       part.data_ptr() if part is not None else None,
+                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv,
+                       hq, hkv, dh, int(bool(causal)), int(window), hps,
+                       float(dh ** -0.5), library.DTYPE_CODES[q.dtype],
+                       library.stream_of(q))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -179,15 +179,21 @@ def test_train_launch_counts_of_the_full_config(chip_smoke):
 ])
 def test_flash_bwd_bound_counts_the_functions_work(chip_smoke, b, s, hq, hkv,
                                                     dh, window, dtype):
-    """10 dh Hq operations per visible pair and batch row at the dtype's
-    peak (fp32 FMA 67, bf16 989 TFLOP/s), against q, k, v, o, dO, dq, dk,
-    dv moved once."""
+    """10 dh Hq operations per visible pair and batch row, against q, k, v,
+    o, dO, dq, dk, dv moved once: bf16 at its tensor rate (989 TFLOP/s);
+    fp32 on the kernel's route, 3x the operations at the TF32 rate (495),
+    with the fp32-FMA bound (67) as ``bound_before_ms``."""
     dt = getattr(torch, dtype)
     ops = 10.0 * b * chip_smoke.flash_pairs(s, window) * dh * hq
     bnd = chip_smoke.flash_bwd_bound(b, s, hq, hkv, dh, dt, window)
-    peak = 989e12 if dt == torch.bfloat16 else 67e12
-    assert bnd["ops"] == ops and bnd["bound_by"] == "operations"
-    assert bnd["bound_ms"] == pytest.approx(ops / peak * 1e3)
+    assert bnd["bound_by"] == "operations"
+    if dt == torch.bfloat16:
+        assert bnd["ops"] == ops and "bound_before_ms" not in bnd
+        assert bnd["bound_ms"] == pytest.approx(ops / 989e12 * 1e3)
+    else:
+        assert bnd["useful_ops"] == ops and bnd["ops"] == 3.0 * ops
+        assert bnd["bound_ms"] == pytest.approx(3.0 * ops / 495e12 * 1e3)
+        assert bnd["bound_before_ms"] == pytest.approx(ops / 67e12 * 1e3)
     elt = 2 if dt == torch.bfloat16 else 4
     assert bnd["bytes"] == elt * b * s * dh * 4 * (hq + hkv)
 

@@ -185,6 +185,13 @@ GPU_CASES = [  # b, s, hq, hkv, dh, causal, window, dtype
     (1, 300, 4, 4, 50, True, 0, torch.float32),      # dh 50: padded dims
     (1, 200, 6, 3, 128, False, 0, torch.float32),    # not causal
     (1, 1, 4, 2, 64, True, 0, torch.float32),        # one row
+    # the dK/dV kernel's runs of query heads: qwen2's g = 7 at B 1 in runs
+    # of 2, 2, 2, 1 (bwd_heads_per_split), and at B 2 in runs of 3, 3, 1
+    (1, 2048, 14, 2, 64, True, 0, torch.bfloat16),
+    (2, 2048, 14, 2, 64, True, 0, torch.bfloat16),   # every diagonal tile
+    (1, 512, 8, 8, 64, True, 0, torch.bfloat16),     # g = 1 (hq = hkv)
+    (1, 1100, 16, 2, 128, True, 333, torch.bfloat16),  # window edge in tiles
+    (1, 300, 4, 2, 64, False, 100, torch.float32),   # windowed, not causal
 ]
 
 

@@ -5,6 +5,8 @@ backward at the train path's, so that two checkouts can be compared on one
 card.
 
     python scripts/kernel_ab.py --root DIR [--label NAME] [--only K1,K2]
+                                [--save FILE]
+    python scripts/kernel_ab.py --same FILE1 FILE2
 
 Loads ``DIR/chip_smoke.py``, which puts ``DIR/src`` first on the import
 path, and times that checkout's ``flash_attention_fwd`` (causal prefill:
@@ -23,13 +25,25 @@ and 4) and ``flash_attention_bwd`` (causal: qwen2-0.5b's train shape q
 fp32; glm4-9b's heads q [1,1024,32,128] against 2 KV heads in bf16; S 2048,
 window 700 in fp32; each on the checkout's own forward output and LSE, with
 dq, dk and dv held against the checkout's plain backward, the device time
-split by kernel, and SDPA's backward beside the bf16 rows). ``--only``
-keeps the kernels named (e.g. ``rglru_scan,wq_claim``).
+split by kernel, and SDPA's backward beside the bf16 rows), and the train
+paths' backward kernels of the SSM and hybrid families: ``ssd_scan_bwd``
+(mamba2-1.3b's train shape, x [512,2048,64] with B/C shared by 64 heads,
+fp32, and at batch 1 a ragged S 1031 and slow decay, each held against
+the plain backward one batch row at a time), ``rglru_scan_bwd`` (a, h, g
+[1,S,4096] fp32: S 4096, ragged S 1031, slow decay at S 4096) and
+``flash_attention_bwd_256`` (recurrentgemma-9b's heads q [1,S,16,256]
+against one KV head, window 2048: S 4096 in bf16 beside SDPA's backward,
+ragged S 1031 in fp32). ``--only`` keeps the kernels named (e.g.
+``rglru_scan,wq_claim``); a checkout older than a kernel's first PR has no
+rows for it, so name the kernels both checkouts have.
 Each case prints one JSON line: CUDA-event ms over back-to-back calls (the
 RG-LRU rows' also with L2 flushed before each call), and the kernels'
 device time (torch.profiler) back to back (warm: inputs stay in L2) and
 with L2 flushed before each call (cold; not for the claim rows, whose
 1.6-4 MB the flush would not change).
+``--save FILE`` also keeps each flash, SSD and RG-LRU row's outputs (the
+same seeded inputs in every checkout), and ``--same FILE1 FILE2`` prints,
+per row, whether two checkouts' outputs are equal to the bit.
 Both are read by the timers of the ``chip_smoke.py`` beside this script,
 whichever checkout is timed, so that two checkouts are read alike; the
 flash rows' error against the plain version is the timed checkout's own
@@ -81,8 +95,24 @@ FLASH_BWD = [  # (case, b, s, hq, hkv, dh, dtype, window), causal
     ("glm4 heads bf16", 1, 1024, 32, 2, 128, torch.bfloat16, 0),
     ("S 2048 window 700 fp32", 1, 2048, 14, 2, 64, torch.float32, 700),
 ]
+FLASH_BWD_256 = [  # (case, b, s, hq, hkv, dh, dtype, window), causal
+    ("recurrentgemma train bf16", 1, 4096, 16, 1, 256, torch.bfloat16, 2048),
+    ("recurrentgemma ragged S 1031 fp32", 1, 1031, 16, 1, 256, torch.float32,
+     2048),
+]
+SSD_BWD = [  # (case, batch, seq, slow decay), 64 heads, P 64, N 128, fp32
+    ("train", 8, 2048, False),
+    ("ragged", 1, 1031, False),
+    ("slow_decay", 1, 2048, True),
+]
+RGLRU_BWD = [  # (case, seq, slow decay), lru width 4096, fp32
+    ("train", 4096, False),
+    ("ragged", 1031, False),
+    ("slow_decay", 4096, True),
+]
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "wq_claim", "flash_attention_bwd")
+           "wq_claim", "flash_attention_bwd", "ssd_scan_bwd",
+           "rglru_scan_bwd", "flash_attention_bwd_256")
 
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,10 +141,21 @@ def load_checkout(root: str):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", required=True)
+    ap.add_argument("--root")
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default=",".join(KERNELS))
+    ap.add_argument("--save", default="")
+    ap.add_argument("--same", nargs=2, default=None)
     args = ap.parse_args()
+    if args.same:
+        a, b = (torch.load(f) for f in args.same)
+        for key in a:
+            print(json.dumps({"case": key, "bit_identical": key in b and all(
+                torch.equal(x, y) for x, y in zip(a[key], b[key]))}))
+        return
+    if not args.root:
+        ap.error("--root is required (or --same FILE1 FILE2)")
+    saved = {}
     only = set(args.only.split(","))
     mod, timer = load_checkout(args.root)
     dev = torch.device("cuda", 0)
@@ -138,6 +179,7 @@ def main() -> None:
                                            window=window)
 
         ref = mod.flash_attention_ref(q, k, v, causal=True, window=window)
+        saved[f"flash_attention {case}"] = [fa().cpu()]
         err = mod._attn_error(fa(), ref, f"flash {case}")
         row = {"label": label, "kernel": "flash_attention", "case": case,
                "err_over_tol": err["err_over_tol"],
@@ -178,6 +220,7 @@ def main() -> None:
         def fn():
             return mod.ssd_scan_fwd(*xs, chunk=256, heads_per_bc=64)
 
+        saved[f"ssd_scan {case}"] = [t.cpu() for t in fn()]
         print(json.dumps({"label": label, "kernel": "ssd_scan", "case": case,
                           "ms": timer.time_ms(fn, 20),
                           "device_ms": timer.device_ms(fn, 20),
@@ -191,6 +234,7 @@ def main() -> None:
         def fn():
             return mod.rglru_scan_fwd(a, u)
 
+        saved[f"rglru_scan {case}"] = [fn().cpu()]
         err = timer.rglru_error(fn(), mod.rglru_scan_ref(a, u))
         print(json.dumps({"label": label, "kernel": "rglru_scan",
                           "case": case, "err_over_tol": err["err_over_tol"],
@@ -218,8 +262,9 @@ def main() -> None:
                           "ms": timer.time_ms(fn, 200),
                           "device_ms": timer.device_ms(fn, 20)}),
               flush=True)
-    for case, b, s, hq, hkv, dh, dtype, window in (
-            FLASH_BWD if "flash_attention_bwd" in only else []):
+    flash_bwd = (FLASH_BWD if "flash_attention_bwd" in only else []) + (
+        FLASH_BWD_256 if "flash_attention_bwd_256" in only else [])
+    for case, b, s, hq, hkv, dh, dtype, window in flash_bwd:
         q, k, v, do = (torch.as_tensor(rng.standard_normal((b, s, h, dh)),
                                        dtype=torch.float32,
                                        device=dev).to(dtype)
@@ -233,6 +278,8 @@ def main() -> None:
 
         ref = mod.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
                                           window=window)
+        saved[f"flash_attention_bwd {case}"] = [t.cpu() for t in (o, lse,
+                                                                  *bwd())]
         errs = [mod._grad_error(g, r, f"flash bwd {case} {name}")
                 for name, g, r in zip(("dq", "dk", "dv"), bwd(), ref)]
         del ref
@@ -254,6 +301,49 @@ def main() -> None:
                                             retain_graph=True), 5)
             del out, inputs
         print(json.dumps(row), flush=True)
+    for case, b, s, slow in SSD_BWD if "ssd_scan_bwd" in only else []:
+        xs = mod.ssd_inputs(rng, b * 64, s, 64, 128, 64, slow=slow,
+                            device=dev)
+        dy = torch.as_tensor(rng.standard_normal((b * 64, s, 64)),
+                             dtype=torch.float32, device=dev)
+        y, _, work = mod.ssd_scan_fwd(*xs, chunk=256, heads_per_bc=64,
+                                      return_work=True)
+
+        def fn():
+            return mod.ssd_scan_bwd(*xs, y, work, dy, chunk=256,
+                                    heads_per_bc=64)
+
+        row = {"label": label, "kernel": "ssd_scan_bwd", "case": case,
+               "ms": timer.time_ms(fn, 10), "device_ms": timer.device_ms(fn, 5),
+               "device_ms_by_kernel": {
+                   name[:40]: us / 1e3 for name, us in timer.per_call_us(
+                       timer._profile(lambda: [fn() for _ in range(5)]),
+                       5).items()}}
+        errs, _ = timer.ssd_bwd_against_plain(xs, dy, None, fn(), 64,
+                                              mod.ssd_scan_bwd_ref)
+        row["err_over_tol"] = max(e["err_over_tol"] for e in errs.values())
+        print(json.dumps(row), flush=True)
+    for case, s, slow in RGLRU_BWD if "rglru_scan_bwd" in only else []:
+        a, u = timer.rglru_inputs(rng, 1, s, 4096, slow=slow, device=dev)
+        g = torch.as_tensor(rng.standard_normal((1, s, 4096)),
+                            dtype=torch.float32, device=dev)
+        h = mod.rglru_scan_fwd(a, u)
+
+        def fn():
+            return mod.rglru_scan_bwd(a, h, g)
+
+        err = max(timer.rglru_error(x, r)["err_over_tol"] for x, r in
+                  zip(fn(), mod.rglru_scan_bwd_ref(a, h, g)))
+        print(json.dumps({"label": label, "kernel": "rglru_scan_bwd",
+                          "case": case, "err_over_tol": err,
+                          "ms": timer.time_ms(fn, 50),
+                          "ms_cold": timer.time_ms(fn, 50, cold=True),
+                          "device_ms": timer.device_ms(fn, 20),
+                          "device_ms_cold": timer.device_ms(fn, 20,
+                                                            cold=True)}),
+              flush=True)
+    if args.save:
+        torch.save(saved, args.save)
 
 
 if __name__ == "__main__":

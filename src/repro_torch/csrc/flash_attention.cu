@@ -61,7 +61,7 @@
 //   special-function unit with the scale folded into log2(e) * scale; a row
 //   with nothing visible yet keeps alpha 1 and p 0 (inf * 0 would be NaN).
 // - The row's log-sum-exp, for the backward (flash_attention_bwd.cu), when
-//   the caller passes an lse buffer [B,Hq,S] (widths 64 and 128, the
+//   the caller passes an lse buffer [B,Hq,S] (every width, as the
 //   backward's): the softmax above runs in base 2 on scale log2(e) q.k, so
 //   after the merge of the two key halves the natural-log LSE of scale q.k
 //   is (m + log2 l) ln 2; a row with no visible key gets +inf, so that the
@@ -562,6 +562,9 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, float* lse,
     if (dh <= 128)
       return launch<T, 128, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
                                   causal, window, scale, s);
+    if (dh <= 256)
+      return launch<T, 256, true>(q, k, v, o, lse, b, sq, skv, hq, hkv, dh,
+                                  causal, window, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dh <= 64)
@@ -578,8 +581,7 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// lse: null, or [B,Hq,S] fp32 for the rows' natural-log log-sum-exp (dh
-// <= 128)
+// lse: null, or [B,Hq,S] fp32 for the rows' natural-log log-sum-exp
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int b, int sq, int skv, int hq, int hkv,

@@ -85,13 +85,19 @@
 //   for 32-bit values) is read in the same order by scalar loads, rows 2 tig
 //   and 2 tig + 1, column gid: at a row pitch of dh + 4 words these fall on
 //   banks 8 tig + gid, all different.
-// - Width 256 (recurrentgemma-9b, g = 16, window 2048; not instantiated):
-//   a warp's dK and dV accumulators would be 256 registers, so the head dims
-//   of dK / dV would have to be split across two warps that share P^T and
-//   dS^T (through shared memory, or both recomputing them), with chunks of
-//   16 columns; bf16 tiles fit (K, V and a two-stage Q/dO ring: 203 KB),
-//   fp32 ones only at 32 rows. The chunked mma_abt / mma_xb and the head
-//   runs carry over as they are.
+// - Width 256 (recurrentgemma-9b, g = 16, window 2048): a warp's dK and dV
+//   accumulators would be 256 registers (dQ's 128), so the output head dims
+//   are split across two blocks (HO = 128 dims each, the "halves" of the
+//   grid): both halves compute S^T and dP^T (S and dP) over the full 256
+//   dims and each accumulates its own 128 dims of dK and dV (dQ), so the
+//   accumulators are those of width 128, with its 16-column chunks of S^T.
+//   The cost is S^T and dP^T (S and dP) computed twice: 4 of the 10
+//   products a visible pair does become 8, 14 in all. bf16 tiles fit at 64
+//   rows (K, V and a two-stage Q/dO ring: 203 KB, one block an SM); fp32
+//   tiles only at 32 rows, so at that width in fp32 a block has 2 warps
+//   (BwdCfg::W), 200 KB of tiles and one block an SM; there every query
+//   head is a run of its own (kernel.py: bwd_heads_per_split), so that an
+//   fp32 accumulator sums at most S terms.
 #include "common.cuh"
 
 namespace {
@@ -123,9 +129,16 @@ struct BwdCfg {
   static constexpr int LD = HD + 16 / sizeof(T);
   static constexpr int NCK = HD == 64 ? 8 : 2;   // of S^T (dK/dV)
   static constexpr int NCQ = HD == 64 ? 8 : 4;   // of S (dQ)
-  static constexpr int NO = HD / 8;   // 8-dim n-tiles of dK, dV and dQ
-  static constexpr size_t tile = sizeof(T) * kTile * LD;
-  static constexpr size_t stats = sizeof(float) * 2 * kTile;   // LSE, D
+  // warps of a block and the rows of its tiles (16 a warp): fp32 tiles of
+  // width 256 fit shared memory only at 32 rows
+  static constexpr int W = kF32 && HD == 256 ? 2 : kWarps;
+  static constexpr int TR = 16 * W;
+  static constexpr int THR = 32 * W;
+  static constexpr int HO = HD > 128 ? 128 : HD;   // output dims a block owns
+  static constexpr int NH = HD / HO;               // blocks of one output row
+  static constexpr int NO = HO / 8;   // 8-dim n-tiles of dK, dV and dQ
+  static constexpr size_t tile = sizeof(T) * TR * LD;
+  static constexpr size_t stats = sizeof(float) * 2 * TR;   // LSE, D
   // dK/dV: K, V, then two stages of (Q, dO, LSE, D); dQ: Q, dO, then two
   // stages of (K, V)
   static constexpr size_t stage_dkdv = 2 * tile + stats;
@@ -135,6 +148,7 @@ struct BwdCfg {
                 "shared memory of one block");
   static_assert(NO % 4 == 0 && NCK % 2 == 0 && NCQ % 2 == 0,
                 "n-tiles in groups");
+  static_assert(THR == 2 * TR, "one thread stages one LSE or D value");
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -143,7 +157,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
-// rows [row0, row0 + kTile) of a [rows_total, row_stride] source into a
+// rows [row0, row0 + TR) of a [rows_total, row_stride] source into a
 // shared tile: 16-byte cp.async copies when vec, else element by element;
 // rows past rows_total are written as zeros (columns past dh are zeroed
 // once by zero_pad and never written here)
@@ -151,11 +165,12 @@ template <typename T, int HD>
 __device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0,
                                            int rows_total, int row_stride,
                                            int dh, bool vec) {
-  constexpr int LD = BwdCfg<T, HD>::LD;
+  using C = BwdCfg<T, HD>;
+  constexpr int LD = C::LD;
   constexpr int kV = 16 / sizeof(T);
   constexpr int kCpr = HD / kV;   // 16-byte chunks of a row at full width
   if (vec) {
-    for (int idx = threadIdx.x; idx < kTile * kCpr; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < C::TR * kCpr; idx += C::THR) {
       const int r = idx / kCpr;
       const int c = idx % kCpr;
       if (c * kV >= dh) continue;
@@ -166,7 +181,7 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0,
         *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
     }
   } else {
-    for (int idx = threadIdx.x; idx < kTile * dh; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < C::TR * dh; idx += C::THR) {
       const int r = idx / dh;
       const int d = idx - r * dh;
       dst[r * LD + d] = row0 + r < rows_total
@@ -179,21 +194,23 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0,
 // head dims [dh, HD) of n consecutive tiles as zeros
 template <typename T, int HD>
 __device__ __forceinline__ void zero_pad(T* tiles, int n, int dh) {
-  constexpr int LD = BwdCfg<T, HD>::LD;
+  using C = BwdCfg<T, HD>;
+  constexpr int LD = C::LD;
   const int w = HD - dh;
-  for (int idx = threadIdx.x; idx < n * kTile * w; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < n * C::TR * w; idx += C::THR) {
     const int r = idx / w;
     tiles[r * LD + dh + idx - r * w] = repro::from_float<T>(0.f);
   }
 }
 
-// LSE then D of query rows [q0, q0 + kTile) into Ls[2 kTile]: +inf and 0
-// past sq
+// LSE then D of query rows [q0, q0 + TR) into Ls[2 TR]: +inf and 0 past
+// sq (one value a thread: THR == 2 TR)
+template <int TR>
 __device__ __forceinline__ void stage_stats(float* Ls, const float* lse,
                                             const float* delta, int q0,
                                             int sq) {
-  const int r = threadIdx.x % kTile;
-  const bool is_d = threadIdx.x >= kTile;
+  const int r = threadIdx.x % TR;
+  const bool is_d = threadIdx.x >= TR;
   if (q0 + r < sq)
     cp_async4(Ls + threadIdx.x, (is_d ? delta : lse) + q0 + r);
   else
@@ -264,12 +281,13 @@ __device__ __forceinline__ void mma_abt(const T* A, const T* B,
   }
 }
 
-// o[u] (the warp's 16 rows x dims 8 u .. +8) += X B: X the warp's
-// accumulator tiles x[NC] (16 rows x 8 NC columns, the k of this product),
-// B the [8 NC][HD] tile rows at B (k row r is B's row r)
+// o[u] (the warp's 16 rows x dims 8 u .. +8 of the block's HO output
+// dims) += X B: X the warp's accumulator tiles x[NC] (16 rows x 8 NC
+// columns, the k of this product), B the [8 NC][HO] tile rows at B (k row
+// r is B's row r; B points at the block's first output dim)
 template <typename T, int HD, int NC>
 __device__ __forceinline__ void mma_xb(const float (&x)[NC][4], const T* B,
-                                       float (&o)[HD / 8][4]) {
+                                       float (&o)[BwdCfg<T, HD>::NO][4]) {
   using C = BwdCfg<T, HD>;
   constexpr int NO = C::NO;
   const int lane = threadIdx.x & 31;
@@ -357,7 +375,7 @@ fa_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
 // of the group; with one split it writes dk and dv, else its fp32 partials
 // (dk already scaled) into part [splits][2][B Skv Hkv dh]
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(BwdCfg<T, HD>::THR)
 fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
@@ -366,9 +384,10 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
             int hps, float scale, int vec) {
   using C = BwdCfg<T, HD>;
   constexpr int LD = C::LD, NC = C::NCK, NO = C::NO, QC = 8 * NC;
+  constexpr int TR = C::TR;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kTile * LD;
+  T* Vs = Ks + TR * LD;
   auto stage_q = [&](int st) {   // Q, then dO, LSE and D of a stage
     return reinterpret_cast<T*>(smem + 2 * C::tile + st * C::stage_dkdv);
   };
@@ -378,10 +397,11 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int gid = lane >> 2, tig = lane & 3;
   const int g = hq / hkv;
   const int splits = (g + hps - 1) / hps;
-  const int split = blockIdx.x % splits;
-  const int bk = blockIdx.x / splits;
+  const int half = blockIdx.x % C::NH;       // the output dims it owns
+  const int split = (blockIdx.x / C::NH) % splits;
+  const int bk = blockIdx.x / (C::NH * splits);
   const int b = bk / hkv, kvh = bk - b * hkv;
-  const int k0 = blockIdx.y * kTile;
+  const int k0 = blockIdx.y * TR;
   const int h0 = kvh * g + split * hps;
   const int nh = min(hps, g - split * hps);
   const size_t kv_off = ((size_t)b * skv * hkv + kvh) * dh;
@@ -390,8 +410,8 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   // (last key) + window (windowed); then one loop over (head, query tile)
   const int q_begin = causal ? k0 : 0;
   int q_end = sq;
-  if (window > 0) q_end = min(sq, min(k0 + kTile, skv) - 1 + window);
-  const int nqt = q_end > q_begin ? (q_end - q_begin + kTile - 1) / kTile : 0;
+  if (window > 0) q_end = min(sq, min(k0 + TR, skv) - 1 + window);
+  const int nqt = q_end > q_begin ? (q_end - q_begin + TR - 1) / TR : 0;
   const int iters = nh * nqt;
 
   if (dh < HD) {
@@ -402,14 +422,13 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   auto stage = [&](int it) {
     T* Qs = stage_q(it & 1);
     const int h = h0 + it / nqt;
-    const int q0 = q_begin + (it % nqt) * kTile;
+    const int q0 = q_begin + (it % nqt) * TR;
     const size_t q_off = ((size_t)b * sq * hq + h) * dh;
     const size_t r_off = ((size_t)b * hq + h) * sq;
     stage_rows<T, HD>(Qs, q + q_off, q0, sq, hq * dh, dh, vec);
-    stage_rows<T, HD>(Qs + kTile * LD, dout + q_off, q0, sq, hq * dh, dh,
-                      vec);
-    stage_stats(reinterpret_cast<float*>(Qs + 2 * kTile * LD),
-                lse + r_off, delta + r_off, q0, sq);
+    stage_rows<T, HD>(Qs + TR * LD, dout + q_off, q0, sq, hq * dh, dh, vec);
+    stage_stats<TR>(reinterpret_cast<float*>(Qs + 2 * TR * LD), lse + r_off,
+                    delta + r_off, q0, sq);
   };
   if (iters > 0) {
     stage_rows<T, HD>(Ks, k + kv_off, k0, skv, hkv * dh, dh, vec);
@@ -434,12 +453,12 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     if (it + 1 < iters) stage(it + 1);
     repro::cp_async_commit();
     const T* Qs = stage_q(it & 1);
-    const T* dOs = Qs + kTile * LD;
-    const float* Ls = reinterpret_cast<const float*>(dOs + kTile * LD);
-    const float* Ds = Ls + kTile;
-    const int q0 = q_begin + (it % nqt) * kTile;
+    const T* dOs = Qs + TR * LD;
+    const float* Ls = reinterpret_cast<const float*>(dOs + TR * LD);
+    const float* Ds = Ls + TR;
+    const int q0 = q_begin + (it % nqt) * TR;
 #pragma unroll 1
-    for (int c = 0; c < kTile; c += QC) {
+    for (int c = 0; c < TR; c += QC) {
       const int qc = q0 + c;
       // nothing of the chunk visible to the warp's keys
       if (kw >= skv || qc >= sq || (causal && qc + QC - 1 < kw) ||
@@ -466,7 +485,7 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
           s[t][e] = p;
         }
       }
-      mma_xb<T, HD, NC>(s, dOs + c * LD, dv_acc);   // dV += P^T dO
+      mma_xb<T, HD, NC>(s, dOs + c * LD + half * C::HO, dv_acc);  // dV += P^T dO
       // dP^T only now, so that it is never live with S^T's chunk
       mma_abt<T, HD, NC>(Vw, dOs + c * LD, dp);
 #pragma unroll
@@ -477,12 +496,12 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           dp[t][e] = s[t][e] * (dp[t][e] - ((e & 1) ? d.y : d.x));
       }
-      mma_xb<T, HD, NC>(dp, Qs + c * LD, dk_acc);   // dK += dS^T Q
+      mma_xb<T, HD, NC>(dp, Qs + c * LD + half * C::HO, dk_acc);  // dK += dS^T Q
     }
   }
   repro::cp_async_wait<0>();   // nothing in flight past the block
 
-  const size_t n = (size_t)(gridDim.x / splits) * skv * dh;   // B Skv Hkv dh
+  const size_t n = (size_t)(gridDim.x / (C::NH * splits)) * skv * dh;  // B Skv Hkv dh
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kj = kw + gid + 8 * i;
@@ -492,7 +511,7 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < NO; ++u)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int d = 8 * u + 2 * tig + e;
+        const int d = half * C::HO + 8 * u + 2 * tig + e;
         if (d >= dh) continue;
         const float x = dk_acc[u][2 * i + e] * scale;
         const float y = dv_acc[u][2 * i + e];
@@ -524,10 +543,10 @@ fa_bwd_sum(const float* __restrict__ part, T* __restrict__ dk,
   }
 }
 
-// grid (B Hq, query tiles), the last query tiles (the most keys under a
-// causal mask) first
+// grid (B Hq halves, query tiles), the last query tiles (the most keys
+// under a causal mask) first
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(BwdCfg<T, HD>::THR)
 fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
@@ -535,18 +554,21 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           int causal, int window, float scale, int vec) {
   using C = BwdCfg<T, HD>;
   constexpr int LD = C::LD, NC = C::NCQ, NO = C::NO, KC = 8 * NC;
+  constexpr int TR = C::TR;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kTile * LD;
-  T* KVs = dOs + kTile * LD;   // two stages of (K, V)
+  T* dOs = Qs + TR * LD;
+  T* KVs = dOs + TR * LD;   // two stages of (K, V)
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
+  const int half = blockIdx.x % C::NH;   // the output dims it owns
+  const int bq = blockIdx.x / C::NH;
+  const int b = bq / hq, h = bq - b * hq;
   const int kvh = h / (hq / hkv);
-  const int nq = (sq + kTile - 1) / kTile;
-  const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * kTile;
+  const int nq = (sq + TR - 1) / TR;
+  const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * TR;
   const size_t q_off = ((size_t)b * sq * hq + h) * dh;
   const size_t r_off = ((size_t)b * hq + h) * sq;
   const size_t kv_off = ((size_t)b * skv * hkv + kvh) * dh;
@@ -554,19 +576,17 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   // keys that a row of this tile sees: j <= last row (causal) and j > q0 -
   // window (windowed)
   int kv_end = skv;
-  if (causal) kv_end = min(kv_end, min(q0 + kTile, sq));
+  if (causal) kv_end = min(kv_end, min(q0 + TR, sq));
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  kv_begin = (kv_begin / kTile) * kTile;
-  const int nkt = kv_end > kv_begin ? (kv_end - kv_begin + kTile - 1) / kTile
-                                    : 0;
+  kv_begin = (kv_begin / TR) * TR;
+  const int nkt = kv_end > kv_begin ? (kv_end - kv_begin + TR - 1) / TR : 0;
 
   if (dh < HD) zero_pad<T, HD>(Qs, 6, dh);
   auto stage_kv = [&](int j) {
-    T* Kst = KVs + (j & 1) * 2 * kTile * LD;
-    const int k0 = kv_begin + j * kTile;
+    T* Kst = KVs + (j & 1) * 2 * TR * LD;
+    const int k0 = kv_begin + j * TR;
     stage_rows<T, HD>(Kst, k + kv_off, k0, skv, hkv * dh, dh, vec);
-    stage_rows<T, HD>(Kst + kTile * LD, v + kv_off, k0, skv, hkv * dh, dh,
-                      vec);
+    stage_rows<T, HD>(Kst + TR * LD, v + kv_off, k0, skv, hkv * dh, dh, vec);
   };
   if (nkt > 0) {
     stage_rows<T, HD>(Qs, q + q_off, q0, sq, hq * dh, dh, vec);
@@ -598,11 +618,11 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // K/V tile j in place; every warp is done with j - 1
     if (j + 1 < nkt) stage_kv(j + 1);
     repro::cp_async_commit();
-    const T* Kst = KVs + (j & 1) * 2 * kTile * LD;
-    const T* Vst = Kst + kTile * LD;
-    const int k0 = kv_begin + j * kTile;
+    const T* Kst = KVs + (j & 1) * 2 * TR * LD;
+    const T* Vst = Kst + TR * LD;
+    const int k0 = kv_begin + j * TR;
 #pragma unroll 1
-    for (int c = 0; c < kTile; c += KC) {
+    for (int c = 0; c < TR; c += KC) {
       const int kc = k0 + c;
       // nothing of the chunk visible to the warp's rows
       if (qw >= sq || kc >= skv || (causal && kc > qw + 15) ||
@@ -628,7 +648,7 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           }
           dp[t][e] = p * (dp[t][e] - dd[i]);
         }
-      mma_xb<T, HD, NC>(dp, Kst + c * LD, dq_acc);   // dQ += dS K
+      mma_xb<T, HD, NC>(dp, Kst + c * LD + half * C::HO, dq_acc);  // dQ += dS K
     }
   }
   repro::cp_async_wait<0>();   // nothing in flight past the block
@@ -642,7 +662,7 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < NO; ++u)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int d = 8 * u + 2 * tig + e;
+        const int d = half * C::HO + 8 * u + 2 * tig + e;
         if (d < dh) row[d] = repro::from_float<T>(dq_acc[u][2 * i + e] * scale);
       }
   }
@@ -674,8 +694,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return (int)e;
   if (skv > 0) {
     const int splits = (hq / hkv + hps - 1) / hps;
-    const dim3 grid_kv(b * hkv * splits, (skv + kTile - 1) / kTile);
-    fa_bwd_dkdv<T, HD><<<grid_kv, kThreads, C::smem_dkdv, stream>>>(
+    const dim3 grid_kv(b * hkv * splits * C::NH, (skv + C::TR - 1) / C::TR);
+    fa_bwd_dkdv<T, HD><<<grid_kv, C::THR, C::smem_dkdv, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
         (T*)dk, (T*)dv, part, sq, skv, hq, hkv, dh, causal, window, hps,
         scale, vec);
@@ -691,8 +711,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       if (e != cudaSuccess) return (int)e;
     }
   }
-  const dim3 grid_q(b * hq, (sq + kTile - 1) / kTile);
-  fa_bwd_dq<T, HD><<<grid_q, kThreads, C::smem_dq, stream>>>(
+  const dim3 grid_q(b * hq * C::NH, (sq + C::TR - 1) / C::TR);
+  fa_bwd_dq<T, HD><<<grid_q, C::THR, C::smem_dq, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
       (T*)dq, sq, skv, hq, hkv, dh, causal, window, scale, vec);
   return (int)cudaGetLastError();
@@ -711,6 +731,10 @@ int launch_dh(const void* q, const void* k, const void* v, const void* o,
     return launch<T, 128>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, b,
                           sq, skv, hq, hkv, dh, causal, window, hps, scale,
                           s);
+  if (dh <= 256)
+    return launch<T, 256>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, b,
+                          sq, skv, hq, hkv, dh, causal, window, hps, scale,
+                          s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -721,7 +745,7 @@ int launch_dh(const void* q, const void* k, const void* v, const void* o,
 // [B,Hq,S]; delta is [B,Hq,S] fp32 scratch (D, written here). The dK/dV
 // kernel cuts each group's Hq/Hkv query heads into runs of heads_per_split;
 // with more than one run, part is fp32 scratch of 2 runs B Skv Hkv dh
-// floats (the runs' partial dk and dv), else unused. dh <= 128.
+// floats (the runs' partial dk and dv), else unused. dh <= 256.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* part, void* dq,

@@ -12,13 +12,15 @@ def _launchers():
     from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd, flash_attention_fwd)
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
+                                                       rglru_scan_fwd)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd, ssd_scan_fwd
     from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd
     return {"wq_claim": wq_claim_fwd, "flash_attention": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention_fwd,
-            "ssd_scan": ssd_scan_fwd, "rglru_scan": rglru_scan_fwd}
+            "ssd_scan": ssd_scan_fwd, "ssd_scan_bwd": ssd_scan_bwd,
+            "rglru_scan": rglru_scan_fwd, "rglru_scan_bwd": rglru_scan_bwd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -32,8 +32,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,S,Hq,dh]; k/v: [B,Skv,Hkv,dh]; contiguous CUDA tensors of one
     dtype (fp32 or bf16), dh <= 256. The kernel runs at the next width of
     64/128/256 and reads the missing head dims as zeros; the scale is the
-    true ``dh ** -0.5``. With ``return_lse`` (dh <= 128, the backward's
-    widths) it returns ``(o, lse)``, lse [B,Hq,S] fp32 the natural-log
+    true ``dh ** -0.5``. With ``return_lse`` it returns ``(o, lse)``, lse
+    [B,Hq,S] fp32 the natural-log
     log-sum-exp of each row's scaled logits (+inf for a row that sees no
     key), which the backward needs.
 
@@ -43,7 +43,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     library.refuse_grad("flash_attention", q, k, v,
                         item="train through kernels.ops.flash_attention")
     library.require_cuda("flash_attention", q, k, v)
-    _check("flash_attention", q, k, v, 128 if return_lse else 256)
+    _check("flash_attention", q, k, v, 256)
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -64,23 +64,32 @@ flash_attention_fwd.launches = 0
 
 
 # the backward's dK/dV kernel has one block per key tile of BWD_KEY_TILE
-# keys (kTile in csrc/flash_attention_bwd.cu), batch, KV head and run of
-# query heads; it fills an H100 with two blocks for each of its 132 SMs, so
-# that the causal mask's uneven tiles even out
+# keys (kTile in csrc/flash_attention_bwd.cu; 32 for fp32 at width 256),
+# batch, KV head, run of query heads and, past width 128, half of the head
+# dims (BwdCfg::NH); it fills an H100 with two blocks for each of its 132 SMs, so that
+# the causal mask's uneven tiles even out
 BWD_KEY_TILE = 64
 BWD_BLOCKS_WANTED = 2 * 132
 
 
-def bwd_heads_per_split(b: int, skv: int, hq: int, hkv: int) -> int:
+def bwd_heads_per_split(b: int, skv: int, hq: int, hkv: int, dh: int = 128,
+                        fp32: bool = False) -> int:
     """How many of a group's ``hq // hkv`` query heads one block of the
     backward's dK/dV kernel walks: all of them when the (key tile, batch, KV
-    head) blocks already number ``BWD_BLOCKS_WANTED``, else g / r rounded
-    up, for the r runs that would bring the blocks up to it (at most one
-    head a block). Rounding up keeps every run but the last equal and the
-    blocks at least half of what was wanted. A pure function of the shapes,
-    at least 1; the last run may be shorter than the others."""
+    head, half) blocks already number ``BWD_BLOCKS_WANTED``, else g / r
+    rounded up, for the r runs that would bring the blocks up to it (at most
+    one head a block). Rounding up keeps every run but the last equal and
+    the blocks at least half of what was wanted. In fp32 at width 256 (the
+    check route) every head is a run of its own: a block's fp32
+    accumulators then sum at most S terms (16 heads x 2048 queries in one
+    run missed the 1e-4 limit at the key every query sees). A pure function
+    of the shapes, at least 1; the last run may be shorter than the
+    others."""
     g = hq // hkv
-    blocks = max(1, b * hkv * -(-skv // BWD_KEY_TILE))
+    wide = dh > 128
+    if wide and fp32:
+        return 1
+    blocks = max(1, b * hkv * -(-skv // BWD_KEY_TILE) * (2 if wide else 1))
     runs = min(g, -(-BWD_BLOCKS_WANTED // blocks))
     return -(-g // runs)
 
@@ -91,7 +100,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) in q's dtype of the attention whose forward gave ``o``
     and ``lse`` (:func:`flash_attention_fwd` with ``return_lse``), for the
     output gradient ``do``; all contiguous CUDA tensors, q/k/v/o/do of one
-    dtype (fp32 or bf16), lse fp32 [B,Hq,S], dh <= 128. Kernels on the
+    dtype (fp32 or bf16), lse fp32 [B,Hq,S], dh <= 256. Kernels on the
     caller's stream: D = rowsum(do * o), then dk/dv (with the group's query
     heads in :func:`bwd_heads_per_split` runs, whose fp32 partials a
     second kernel adds in order when there is more than one), then dq; no
@@ -102,7 +111,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         item="a double backward through flash attention is "
                         "not ported")
     library.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
-    _check("flash_attention_bwd", q, k, v, 128)
+    _check("flash_attention_bwd", q, k, v, 256)
     if o.shape != q.shape or do.shape != q.shape or \
             o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError("flash_attention_bwd: o and do must be like q")
@@ -113,7 +122,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(b, hq, sq)}, got {lse.dtype} {tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    hps = bwd_heads_per_split(b, skv, hq, hkv)
+    hps = bwd_heads_per_split(b, skv, hq, hkv, dh,
+                              q.dtype == torch.float32)
     splits = -(-(hq // hkv) // hps)
     part = torch.empty(2 * splits * b * skv * hkv * dh, dtype=torch.float32,
                        device=q.device) if splits > 1 else None

@@ -6,8 +6,8 @@ differentiates. On the card, a call that needs a gradient (grad enabled and
 an input that requires grad) goes through :class:`FlashAttentionFn`, whose
 forward is the forward kernel with its row log-sum-exp and whose backward
 is the backward kernel; any other call launches the forward alone. The
-kernels take any S and Skv (tails are masked) and any dh up to 256 (128 for
-the backward), with the scale of the true dh.
+kernels take any S and Skv (tails are masked) and any dh up to 256, with
+the scale of the true dh.
 """
 from __future__ import annotations
 

@@ -51,7 +51,10 @@ _SIGNATURES = {
     "decode_attention_rows": ([_I] * 3, _I),
     "ssd_scan_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "ssd_scan_scratch_floats": ([_I] * 6, ctypes.c_longlong),
+    "ssd_scan_bwd_launch": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "ssd_scan_bwd_scratch_floats": ([_I] * 6, ctypes.c_longlong),
     "rglru_scan_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "rglru_scan_bwd_launch": ([_P] * 5 + [_I] * 4 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -163,8 +166,9 @@ def refuse_grad(name: str, *tensors: torch.Tensor, item: str) -> None:
             f"its output would carry no gradient ({item})")
 
 
-TRAINING_ITEM = ("backward kernels for it: ROADMAP Queue 1, SSM and hybrid "
-                 "training")
+TRAINING_ITEM = ("train through kernels.ops, whose autograd Functions "
+                 "(SSDScanFn, RGLRUScanFn, FlashAttentionFn) launch the "
+                 "backward kernels")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -7,10 +7,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 4 --seq-len 2048 --batch 8
 
-``--device`` defaults to ``cuda``: the dense family's attention then runs
-forward and backward in the hand-written flash kernels, and the command
-fails when no card is present. The SSM and hybrid families raise (their
-scans' backward kernels: ROADMAP Queue 1).
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+      --steps 4 --seq-len 2048 --batch 8
+
+``--device`` defaults to ``cuda``: attention (dense, hybrid), the SSD scan
+(SSM) and the RG-LRU scan (hybrid) then run forward and backward in the
+hand-written kernels, and the command fails when no card is present.
+Microbatches follow ``cfg.microbatches`` (4 for recurrentgemma-9b).
 """
 from __future__ import annotations
 

@@ -2,9 +2,8 @@
 
 ``build_model(cfg)`` returns a ``Model`` bundle of functions, as the
 reference's registry does; the executor invokes them per task. The dense,
-SSM and hybrid families are ported for serving; the others raise, naming the
-ROADMAP item that brings them. ``train_loss`` is ported for the dense
-family; for the SSM and hybrid families it raises, naming its ROADMAP item.
+SSM and hybrid families are ported for serving and training; the others
+raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 

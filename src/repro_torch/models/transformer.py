@@ -25,12 +25,14 @@ branch to fp32, so the layer scan's carry changes dtype: a ``TypeError``).
 Its dense prefill casts its K/V to ``cfg.dtype`` the same way. In fp32 the
 two agree exactly.
 
-Training (:func:`train_loss`) is ported for the dense family: the layer
-loop with one ``torch.utils.checkpoint`` per layer when ``cfg.remat`` (the
-reference's ``jax.checkpoint`` of the scan body) and the sequence-chunked
-cross-entropy (:func:`chunked_xent`). The SSM and hybrid families' training
-needs backward kernels for the SSD and RG-LRU scans (ROADMAP Queue 1). The
-MoE, VLM and enc-dec families come with later slices.
+Training (:func:`train_loss`) is ported for all three families: the layer
+loop with one ``torch.utils.checkpoint`` per scan body when ``cfg.remat``
+(the reference's ``jax.checkpoint`` of its scan body: a dense or SSM layer,
+a hybrid group of (rec, rec, attn), a hybrid tail layer) and the
+sequence-chunked cross-entropy (:func:`chunked_xent`). On the card the
+scans and the attention differentiate through their backward kernels
+(``kernels.ops``' autograd Functions). The MoE, VLM and enc-dec families
+come with later slices.
 """
 from __future__ import annotations
 
@@ -83,9 +85,6 @@ class RecBlock(nn.Module):
 _BLOCKS = {FAMILY_DENSE: AttnBlock, FAMILY_SSM: SSMBlock}
 _KINDS = {"rec": RecBlock, "attn": AttnBlock}
 PORTED = (FAMILY_DENSE, FAMILY_SSM, FAMILY_HYBRID)
-TRAINABLE = (FAMILY_DENSE,)
-TRAINING_ITEM = ("ROADMAP Queue 1, SSM and hybrid training (backward kernels "
-                 "for ssd_scan and rglru_scan)")
 
 
 def hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
@@ -209,18 +208,47 @@ def _head_table(cfg: ModelConfig, params: DecoderLM) -> nn.Embedding:
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
-def _train_block(cfg: ModelConfig, positions, lp: AttnBlock, x):
-    return _attn_block(lp, x, cfg, positions=positions)[0]
+def _train_attn(cfg: ModelConfig, positions, window, lp: AttnBlock, x):
+    return _attn_block(lp, x, cfg, positions=positions, window=window)[0]
+
+
+def _train_ssm(cfg: ModelConfig, lp: SSMBlock, x):
+    return _ssm_block(lp, x, cfg)[0]
+
+
+def _train_rec(cfg: ModelConfig, lp: RecBlock, x):
+    return _rec_block(lp, x, cfg)[0]
+
+
+def _train_group(cfg: ModelConfig, positions, group: nn.ModuleDict, x):
+    """One hybrid group, its (rec, rec, attn) pattern in order; the window
+    reaches its attention layers, as in the prefill."""
+    for i, kind in enumerate(cfg.rglru.pattern):
+        lp = group[f"pos{i}"]
+        x = _train_rec(cfg, lp, x) if kind == "rec" else \
+            _train_attn(cfg, positions, cfg.rglru.window, lp, x)
+    return x
+
+
+def _train_bodies(cfg: ModelConfig, params: DecoderLM, positions):
+    """The reference's scan bodies in order, as functions of x: a layer
+    (dense, SSM), or a hybrid group, then each hybrid tail layer."""
+    P = functools.partial
+    if cfg.family == FAMILY_HYBRID:
+        return [P(_train_group, cfg, positions, g) for g in params.groups] \
+            + [P(_train_rec, cfg, lp) for lp in getattr(params, "tail", ())]
+    if cfg.family == FAMILY_SSM:
+        return [P(_train_ssm, cfg, lp) for lp in params.layers]
+    return [P(_train_attn, cfg, positions, 0, lp) for lp in params.layers]
 
 
 def _run_stack_train(cfg: ModelConfig, params: DecoderLM, x, *, positions):
-    """The layers without caches, each under ``torch.utils.checkpoint`` when
-    ``cfg.remat`` (its activations are recomputed in the backward, as
-    ``_maybe_ckpt`` has XLA do). The recompute reads the layer's params
-    from the module again, so the backward must run while any parameter
+    """The scan bodies without caches, each under ``torch.utils.checkpoint``
+    when ``cfg.remat`` (its activations are recomputed in the backward, as
+    ``_maybe_ckpt`` has XLA do). The recompute reads the body's params from
+    the module again, so the backward must run while any parameter
     replacement (``functional_call``) is still in place."""
-    for lp in params.layers:
-        fn = functools.partial(_train_block, cfg, positions, lp)
+    for fn in _train_bodies(cfg, params, positions):
         x = checkpoint(fn, x, use_reentrant=False,
                        preserve_rng_state=False) if cfg.remat else fn(x)
     return x
@@ -257,12 +285,8 @@ def chunked_xent(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
 def train_loss(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(mean next-token loss, {"loss", "aux_loss"}) of ``batch`` (tokens and
-    labels [B,S]) in the params' dtype, the dense family only. The tied
-    table's gradient sums its use as the embedding and as the head."""
-    if cfg.family not in TRAINABLE:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
-            f"yet: {TRAINING_ITEM}")
+    labels [B,S]) in the params' dtype. The tied table's gradient sums its
+    use as the embedding and as the head."""
     x = params.embed(batch["tokens"])
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]

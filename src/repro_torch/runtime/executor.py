@@ -8,8 +8,8 @@ task's knobs (lr scale, data shard), and commits provenance (loss, grad
 norm, seconds) back to the SAME store the steering engine queries, whose
 sweeps run on store snapshots on an analyst thread meanwhile. The loop is
 the reference's (``repro/runtime/executor.py``); on a CUDA device the
-dense family's attention runs forward and backward in the hand-written
-flash kernels. The replica / remote analysts and the sharded topology need
+dense, SSM and hybrid families run attention and the SSD and RG-LRU scans
+forward and backward in the hand-written kernels. The replica / remote analysts and the sharded topology need
 the replication and sharding modules (ROADMAP Queue 1, the rest of the
 control plane) and raise.
 

@@ -6,6 +6,7 @@ import importlib.util
 import json
 import pathlib
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -215,3 +216,85 @@ def test_main_refuses_without_a_card(chip_smoke, capsys):
         chip_smoke.main()
     assert exc.value.code not in (0, None)
     assert '"ok": true' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_ssm_and_hybrid_train_phases_on_cpu(chip_smoke, capsys, arch):
+    """The train phase and the card-vs-CPU train check of the SSM and
+    hybrid families (smoke configs with remat; the hybrid's check without
+    the optimizer step, as on the card), run CPU against CPU here: equal to
+    the bit, every task finished with a finite loss."""
+    import dataclasses
+    cfg = dataclasses.replace(smoke_config(arch), remat=True)
+    train = chip_smoke.phase_train(cfg, "cpu", steps=4, workers=2,
+                                   seq_len=32, batch=4, reduced="smoke")
+    train["executor"].close()
+    res = train["result"]
+    assert res["steps"] == 4 and np.isfinite(res["losses"]).all()
+    assert res["reduced"] == "smoke" and res["param_count"] > 0
+    assert set(res["launches"]) == set(chip_smoke.train_launches(cfg, 4, 2))
+    step = arch == "mamba2-1.3b"
+    check = chip_smoke.phase_train_check(
+        cfg, "cpu", layers=len(cfg.rglru.pattern) if cfg.rglru else 2,
+        batch=2, seq_len=32, step=step, prefixes=("layers.0.mixer.",))
+    assert check["loss"][0] == check["loss"][1]
+    assert check["max_grad_err_over_largest"] == 0.0
+    if step:
+        assert "layers.0.mixer.A_log" in check["params"]
+        assert all(p["max_abs_err"] == 0.0 for p in check["params"].values())
+    else:
+        assert check["params"] is None
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == ["train", "train_check"]
+
+
+def test_train_launch_counts_of_the_ssm_and_hybrid_runs(chip_smoke):
+    """mamba2-1.3b, 6 steps: 48 SSM layers, the SSD scan forward twice
+    (remat) and its backward once a layer and step; recurrentgemma-9b cut
+    to 8 layers (2 groups + 2 tail: 6 rec and 2 attention layers), 6 steps
+    of 4 microbatches: the RG-LRU scan and flash at width 256 likewise, per
+    microbatch; 3 claim ticks each."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    assert chip_smoke.train_launches(get_config("mamba2-1.3b"), 6, 3) == {
+        "ssd_scan": 576, "ssd_scan_bwd": 288, "wq_claim": 3}
+    hcut = dataclasses.replace(get_config("recurrentgemma-9b"),
+                               num_layers=chip_smoke.HYBRID_TRAIN_LAYERS)
+    assert chip_smoke.train_launches(hcut, 6, 3) == {
+        "rglru_scan": 288, "rglru_scan_bwd": 144, "flash_attention": 96,
+        "flash_attention_bwd": 48, "wq_claim": 3}
+
+
+def test_ssd_bwd_bound_of_the_train_shape(chip_smoke):
+    """mamba2-1.3b's train shape (BH 512, S 2048, P 64, N 128, chunk 256,
+    one B/C row per batch row): the chunked backward's useful flop, tripled
+    on its 3xTF32 route, bind against the 855 MB of inputs and gradients."""
+    ops, nbytes = chip_smoke.ssd_bwd_ops_bytes(512, 2048, 64, 128, 256, 64)
+    pairs = 8 * 256 * 257 // 2
+    assert ops == 2.0 * (3 * 8 * pairs * 128 + 512 * (2 * pairs * 64
+                                                      + 5 * 2048 * 64 * 128))
+    assert nbytes == 4 * (3 * 512 * 2048 * 64 + 4 * 8 * 2048 * 128
+                          + 4 * 512 * 2048)
+    bound = chip_smoke._bound(nbytes, 3.0 * ops, "tf32")
+    assert bound["bound_by"] == "operations"
+    ops, nbytes = chip_smoke.rglru_bwd_ops_bytes(1, 4096, 4096)
+    assert nbytes == 20 * 4096 * 4096
+    assert chip_smoke._bound(nbytes, ops, torch.float32)["bound_by"] == \
+        "bytes"
+
+
+def test_train_history_steps_both_devices_alike_on_cpu():
+    """``scripts/train_history.py``'s two histories, both run on the CPU
+    here (smoke mamba2, two SSD chunks): the same params and batches give
+    the same losses and grad norms to the bit, a new loss every step."""
+    spec = importlib.util.spec_from_file_location(
+        "train_history", ROOT / "scripts" / "train_history.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = smoke_config("mamba2-1.3b")
+    dcfg = mod.DataConfig(vocab_size=cfg.vocab_size, seq_len=2 * cfg.ssm.chunk,
+                          batch_size=2)
+    first, second = mod.history(cfg, dcfg, 3, 3e-3, 0, "cpu")
+    assert first == second and len(first) == 3
+    assert all(np.isfinite(v).all() for v in first)
+    assert len({loss for loss, _ in first}) == 3   # every step moved the params

@@ -23,8 +23,9 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFn  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
-from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
+from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,  # noqa: E402
+                                                   rglru_scan_fwd)
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd, ssd_scan_fwd  # noqa: E402
 
 # the plain backward against autograd / jax.grad, all in fp32 on the CPU:
 # the same sums in another order (einsum contractions over <= 131 keys or
@@ -129,14 +130,18 @@ def test_forward_only_launchers_refuse_inputs_that_require_grad():
     device check."""
     x = torch.zeros((2, 8, 4), requires_grad=True)
     q = torch.zeros((1, 8, 2, 8), requires_grad=True)
+    w = torch.zeros(16)
     calls = [
-        (lambda: ssd_scan_fwd(x, x, x, x[..., 0], x[..., 0]), "Queue 1"),
-        (lambda: rglru_scan_fwd(x, x), "Queue 1"),
+        (lambda: ssd_scan_fwd(x, x, x, x[..., 0], x[..., 0]), "SSDScanFn"),
+        (lambda: rglru_scan_fwd(x, x), "RGLRUScanFn"),
         (lambda: decode_attention_fwd(q[:, :1], q, q, kv_len=torch.tensor(
-            [3], dtype=torch.int32)), "Queue 1"),
+            [3], dtype=torch.int32)), "serve-only; train through kernels.ops"),
         (lambda: flash_attention_fwd(q, q, q), "kernels.ops.flash_attention"),
         (lambda: flash_attention_bwd(q, q, q, q, q[:, 0].transpose(1, 2), q),
          "double backward"),
+        (lambda: ssd_scan_bwd(x, x, x, x[..., 0], x[..., 0], x, w, x),
+         "double backward"),
+        (lambda: rglru_scan_bwd(x, x, x), "double backward"),
     ]
     for call, item in calls:
         with pytest.raises(RuntimeError, match=item):
@@ -192,6 +197,13 @@ GPU_CASES = [  # b, s, hq, hkv, dh, causal, window, dtype
     (1, 512, 8, 8, 64, True, 0, torch.bfloat16),     # g = 1 (hq = hkv)
     (1, 1100, 16, 2, 128, True, 333, torch.bfloat16),  # window edge in tiles
     (1, 300, 4, 2, 64, False, 100, torch.float32),   # windowed, not causal
+    # width 256, two blocks an output row (recurrentgemma-9b: 16 query heads
+    # over one KV head, window 2048); fp32 in tiles of 32 rows
+    (1, 4096, 16, 1, 256, True, 2048, torch.bfloat16),  # its train shape
+    (1, 1031, 16, 1, 256, True, 2048, torch.float32),   # ragged S
+    (1, 2100, 16, 1, 256, True, 2048, torch.float32),   # window biting
+    (2, 200, 8, 1, 200, True, 50, torch.bfloat16),      # dh 200: padded
+    (1, 300, 4, 2, 256, False, 0, torch.float32),       # not causal
 ]
 
 
@@ -215,9 +227,10 @@ def test_backward_kernel_equals_plain(dev, b, s, hq, hkv, dh, causal, window,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernel_repeats_bit_identical(dev, dtype):
+@pytest.mark.parametrize("hq,hkv,dh", [(14, 2, 64), (16, 1, 256)])
+def test_backward_kernel_repeats_bit_identical(dev, dtype, hq, hkv, dh):
     """No atomics: 10 back-to-back calls give the same bits."""
-    q, k, v, do = _card(_inputs(2, 700, 14, 2, 64, seed=9), dtype, dev)
+    q, k, v, do = _card(_inputs(2, 700, hq, hkv, dh, seed=9), dtype, dev)
     out, lse = flash_attention_fwd(q, k, v, return_lse=True)
     first = flash_attention_bwd(q, k, v, out, lse, do)
     for _ in range(10):
@@ -226,13 +239,15 @@ def test_backward_kernel_repeats_bit_identical(dev, dtype):
 
 
 @pytest.mark.gpu
-def test_lse_output_leaves_the_forward_unchanged(dev):
+@pytest.mark.parametrize("hq,hkv,dh,window", [(14, 2, 64, 0),
+                                              (16, 1, 256, 700)])
+def test_lse_output_leaves_the_forward_unchanged(dev, hq, hkv, dh, window):
     """The serve path passes no lse buffer: the output is the same bits
     with and without it."""
-    q, k, v, _ = _card(_inputs(1, 1000, 14, 2, 64, seed=4), torch.bfloat16,
+    q, k, v, _ = _card(_inputs(1, 1000, hq, hkv, dh, seed=4), torch.bfloat16,
                        dev)
-    plain = flash_attention_fwd(q, k, v)
-    out, _ = flash_attention_fwd(q, k, v, return_lse=True)
+    plain = flash_attention_fwd(q, k, v, window=window)
+    out, _ = flash_attention_fwd(q, k, v, window=window, return_lse=True)
     assert torch.equal(plain, out)
 
 

@@ -398,7 +398,8 @@ def test_dispatch_launches_kernels_or_raises(dev):
     assert launch_counts() == {"wq_claim": 1, "flash_attention": 2,
                                "flash_attention_bwd": 0,
                                "decode_attention": 2, "ssd_scan": 1,
-                               "rglru_scan": 1}
+                               "ssd_scan_bwd": 0, "rglru_scan": 1,
+                               "rglru_scan_bwd": 0}
     with pytest.raises(TypeError):
         kops.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError):

@@ -4,8 +4,8 @@ qwen2-0.5b (fp32) with the reference's params carried over through
 (``chunked_xent``, ``train_loss``), every gradient (``jax.value_and_grad``
 of the reference's cast-then-loss), and one ``make_train_step`` for AdamW,
 Adafactor (the smoke command-r-plus, which selects it) and int8 gradient
-compression; then microbatching and remat against the plain step, and the
-families that do not train yet.
+compression; then microbatching and remat against the plain step, and a
+loss and every gradient of the SSM and hybrid families.
 
 Limits: the loss 1e-5 (relative; fp32, sums in another order); gradients
 1e-4 of each tensor's largest magnitude; the moments 1e-4 of their largest
@@ -221,15 +221,20 @@ def test_remat_recomputes_the_same_gradients(qwen):
     assert all(torch.equal(g0[n], g1[n]) for n in g0)
 
 
-def test_ssm_and_hybrid_training_name_their_roadmap_item():
+def test_ssm_and_hybrid_training_give_a_loss_and_every_gradient():
+    """The SSM and hybrid families train (held against the reference in
+    tests/test_torch_train_ssm_hybrid.py): a finite loss through the
+    registry's train_loss and a nonzero gradient for every parameter."""
     for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
         cfg = smoke_config(arch)
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-            model.train_loss(params, {})
-        with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-            make_train_step(cfg)
+        batch = _tbatch(_batch(cfg))
+        loss, metrics = model.train_loss(params, batch)
+        assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"]) == 0
+        _, _, grads = loss_and_grads(cfg, params, batch)
+        assert set(grads) == {n for n, _ in params.named_parameters()}
+        assert all(bool((g != 0).any()) for g in grads.values())
 
 
 def test_abstract_train_state_allocates_nothing():

@@ -3,7 +3,8 @@ executor tests (``tests/test_system.py``) and of its checkpoint and data
 tests (``tests/test_checkpoint_and_data.py``), the 24-step loss history
 held against the reference's executor from the same init, the port's
 ``store.npz`` read by the reference's checkpointer, the arms that are not
-ported, and the ``repro_torch.launch.train`` command line."""
+ported, and the ``repro_torch.launch.train`` command line; the executor and
+the command line also for the SSM and hybrid families."""
 import json
 
 import numpy as np
@@ -308,9 +309,6 @@ def test_arms_that_are_not_ported_name_their_roadmap_item(tmp_path):
         ck.save(1, _state(cfg), router=object())
     with pytest.raises(NotImplementedError, match="Queue 1"):
         ck.restore(_state(cfg), router_kw={})
-    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-            TrainExecutor(smoke_config(arch), device="cpu")
 
 
 def test_train_executor_defaults_to_the_card():
@@ -338,3 +336,46 @@ def test_train_command_line(capsys, tmp_path):
     _, _, wq = Checkpointer(str(tmp_path)).restore(
         _state(smoke_config("qwen2-0.5b")))
     assert wq.counts()["FINISHED"] == 4
+
+
+# --------------------------------------------- the SSM and hybrid families
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_train_executor_trains_the_ssm_and_hybrid_families(arch):
+    """4 store-driven steps on 2 workers with device claims (the claim
+    kernel's plain version on the CPU) and steering on snapshots: every
+    task FINISHED with a finite loss written back to the store, and the
+    loss history the reference's executor gives from the same init (the
+    history test's limit)."""
+    cfg = smoke_config(arch)
+    jcfg = jax_smoke_config(arch)
+    jex = JaxTrainExecutor(jcfg, num_workers=2, steer_every=2,
+                           data_cfg=jpipeline.DataConfig(
+                               vocab_size=cfg.vocab_size, seq_len=32,
+                               batch_size=4))
+    with flags.device_claims(True):
+        ex = _executor(cfg, steer_every=2)
+    assert ex.wq.device_claim
+    ex.state = train_state_from_jax(
+        cfg, jax.tree.map(np.asarray, jex.state), ex.state["params"])
+    for e in (ex, jex):
+        e.submit_steps(4)
+    hist, jhist = ex.run(), jex.run()
+    ex.close()
+    losses = [h["loss"] for h in hist]
+    assert len(hist) == 4 == ex.wq.counts()["FINISHED"]
+    assert np.isfinite(losses).all()
+    assert np.array_equal(np.sort(ex.wq.store.col("out0")[:4]),
+                          np.sort(losses))
+    assert ex.last_steering is not None
+    np.testing.assert_allclose(losses, [h["loss"] for h in jhist],
+                               rtol=HISTORY_REL_TOL)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_train_command_line_ssm_and_hybrid(capsys, arch):
+    """python -m repro_torch.launch.train --arch <arch> --smoke --device
+    cpu --steps 2 trains its 2 steps."""
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                    "2", "--workers", "2", "--seq-len", "32", "--batch",
+                    "4"])
+    assert "trained 2 steps on cpu" in capsys.readouterr().out

@@ -69,9 +69,10 @@ Phases, each printing JSON lines:
      each of dq, dk and dv within its limit and a repeat bit-identical,
      beside SDPA's backward and the function's bound; the backward kernels
      of the two scans and flash at width 256, the train paths' shapes: the
-     SSD scan's backward timed at mamba2-1.3b's train shape and held against
-     its plain version at one batch row of it, at a ragged S and in slow
-     decay, the RG-LRU scan's at [1, 4096, 4096], ragged and slow, flash's
+     SSD scan's backward timed at mamba2-1.3b's train shape, with its device
+     time by launch, and held against its plain version over all 8 batch
+     rows of it (one row a call), at a ragged S and in slow decay, the
+     RG-LRU scan's at [1, 4096, 4096], ragged and slow, flash's
      forward with its LSE and backward at recurrentgemma-9b's heads, S 4096
      in bf16 beside SDPA's, and at a ragged S in fp32), then one
      ``{"kernels": [...]}`` line:

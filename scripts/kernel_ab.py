@@ -29,7 +29,8 @@ split by kernel, and SDPA's backward beside the bf16 rows), and the train
 paths' backward kernels of the SSM and hybrid families: ``ssd_scan_bwd``
 (mamba2-1.3b's train shape, x [512,2048,64] with B/C shared by 64 heads,
 fp32, and at batch 1 a ragged S 1031 and slow decay, each held against
-the plain backward one batch row at a time), ``rglru_scan_bwd`` (a, h, g
+the plain backward one batch row at a time, with its device time by
+launch), ``rglru_scan_bwd`` (a, h, g
 [1,S,4096] fp32: S 4096, ragged S 1031, slow decay at S 4096) and
 ``flash_attention_bwd_256`` (recurrentgemma-9b's heads q [1,S,16,256]
 against one KV head, window 2048: S 4096 in bf16 beside SDPA's backward,

@@ -1,8 +1,12 @@
-// The block-tile products and chunk helpers shared by the SSD scan's
-// forward (ssd_scan.cu) and backward (ssd_scan_bwd.cu): 64 x 64 output
-// tiles of 8 warps, operands staged in shared memory as TF32 high parts and
-// remainders (3xTF32 mma.sync), the next slab's loads in flight while this
-// slab's products run; the fp64 in-chunk cumsum of da; the shapes.
+// The block-tile products and chunk helpers of the SSD scan's forward
+// (ssd_scan.cu) and backward (ssd_scan_bwd.cu). The forward's products
+// (gemm): 64 x 64 output tiles of 8 warps, operands staged in shared memory
+// as TF32 high parts and remainders (3xTF32 mma.sync), the next slab's
+// loads in flight while this slab's products run. The backward's (the
+// ring): raw fp32 slabs copied by cp.async into a ring of stages, one block
+// barrier a slab, and each value split into its TF32 parts when a fragment
+// is loaded, on the FMA pipe; 64 x 64 or 64 x 128 output tiles of 32 x 32
+// warp tiles. Both: the fp64 in-chunk cumsum of da; the shapes.
 #pragma once
 
 #include "common.cuh"
@@ -182,6 +186,260 @@ __device__ void chunk_scan(const T* __restrict__ da, const T* __restrict__ dt,
       dac[i] = acc;
     }
   }
+}
+
+// ---- the backward's ring ----
+//
+// A block tile is 64 rows by BN (64 or 128) columns; warp w holds rows
+// 32 (w % 2) .. +32 and columns 32 (w / 2) .. +32 as acc[mt][nt], the m16n8
+// tile of rows 16 mt and columns 8 nt: (row gid, cols 2 tig + {0, 1}) and
+// (row gid + 8, ...). A slab is 32 of the reduction. Its operands lie in a
+// stage as they were read: A [64][36] (rows m, k contiguous) or, K-major,
+// [32][72] (rows k, m contiguous); B [BN][36] (rows n) or, K-major,
+// [32][BN + 8]. The paddings put the fragment loads (and the 16-byte copies)
+// on 32 different banks. Then a side vector of up to SIDE floats that a
+// launch stages with the slab (a per-row or per-k scale, or the decays of
+// an epilogue).
+constexpr int kRS = 32;        // reduction slab
+constexpr int kLdR = kRS + 4;  // [rows][36]
+constexpr int kLdA = kB + 8;   // [32][72]: A, K-major
+constexpr int kRingA = kB * kLdR;
+
+static_assert(kB * kLdR == kRS * kLdA, "A stages of one size");
+
+template <int BN, int SIDE>
+struct Ring {
+  static constexpr int kWarps = 2 * (BN / 32);
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kLdB = BN + 8;   // [32][BN + 8]: B, K-major
+  static constexpr int kBsz = BN * kLdR > kRS * kLdB ? BN * kLdR : kRS * kLdB;
+  static constexpr int kStage = kRingA + kBsz + SIDE;   // floats
+  static_assert(SIDE % 4 == 0, "16-byte stages");
+  __device__ static float* a(float* ring, int st) {
+    return ring + st * kStage;
+  }
+  __device__ static float* b(float* ring, int st) {
+    return ring + st * kStage + kRingA;
+  }
+  __device__ static float* side(float* ring, int st) {
+    return ring + st * kStage + kRingA + kBsz;
+  }
+};
+
+// cp.async of `bytes` (0 .. the copy's size) from src, the rest of the copy
+// zero-filled; with 0 bytes nothing is read
+__device__ __forceinline__ void cp_zfill16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   repro::smem_u32(dst)), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_zfill4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   repro::smem_u32(dst)), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_zfill8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   repro::smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
+// copy a box of R rows x C columns (columns contiguous in global memory,
+// row stride ld floats) from src into dst (row pitch lds floats): rows from
+// nr on and columns from nc on are zeros. Thread t takes the 4-column
+// chunks t, t + NT, ...: chunk idx is row idx / (C / 4), columns
+// 4 (idx % (C / 4)) .. +4 (box_chunk). 16-byte copies where every row
+// start is 16-byte aligned, else one 4-byte copy a value. safe: any
+// readable address (given to the copies that read nothing).
+template <int R, int C, int NT>
+__device__ __forceinline__ void box(float* dst, int lds, const float* src,
+                                    size_t ld, int nr, int nc,
+                                    const float* safe) {
+  constexpr int kChunks = R * C / 4;
+  const bool vec = (ld & 3) == 0 &&
+                   (reinterpret_cast<unsigned long long>(src) & 15) == 0;
+  if (vec && nr >= R && nc >= C) {   // the whole box: no bounds a chunk
+#pragma unroll
+    for (int e = 0; e < (kChunks + NT - 1) / NT; ++e) {
+      const int idx = threadIdx.x + e * NT;
+      if (kChunks % NT != 0 && idx >= kChunks) break;
+      const int r = idx / (C / 4), c = (idx % (C / 4)) * 4;
+      cp_zfill16(dst + r * lds + c, src + (size_t)r * ld + c, 16);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < (kChunks + NT - 1) / NT; ++e) {
+    const int idx = threadIdx.x + e * NT;
+    if (kChunks % NT != 0 && idx >= kChunks) break;
+    const int r = idx / (C / 4), c = (idx % (C / 4)) * 4;
+    float* d = dst + r * lds + c;
+    const float* s = src + (size_t)r * ld + c;
+    const int left = r < nr ? min(max(nc - c, 0), 4) : 0;   // values to read
+    if (vec) {
+      cp_zfill16(d, left ? s : safe, 4 * left);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        cp_zfill4(d + q, q < left ? s + q : safe, q < left ? 4 : 0);
+    }
+  }
+}
+
+// the first row and column of chunk e (of a thread's share) of a box
+template <int C, int NT>
+__device__ __forceinline__ void box_chunk(int e, int& r, int& c) {
+  const int idx = threadIdx.x + e * NT;
+  r = idx / (C / 4);
+  c = (idx % (C / 4)) * 4;
+}
+
+// n values of a side vector (4 or 8 bytes each, T float or double), those
+// from nv on zeros: one copy a value, by threads 0 .. n - 1 (n <= threads)
+template <typename T>
+__device__ __forceinline__ void side_copy(T* dst, const T* src, int n, int nv,
+                                          const T* safe) {
+  const int t = threadIdx.x;
+  if (t < n) {
+    if (sizeof(T) == 8)
+      cp_zfill8(dst + t, t < nv ? src + t : safe, t < nv ? 8 : 0);
+    else
+      cp_zfill4(dst + t, t < nv ? src + t : safe, t < nv ? 4 : 0);
+  }
+}
+
+// TF32 high parts and remainders of a fragment's values on the FMA pipe
+// (common.cuh's split_a: the high part rounded to 11 significant bits, the
+// remainder exact and truncated to TF32 by the tensor core)
+template <int N>
+__device__ __forceinline__ void split_frag(const float (&x)[N],
+                                           unsigned (&hi)[N],
+                                           unsigned (&lo)[N]) {
+  unsigned bits[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) bits[i] = __float_as_uint(x[i]);
+  repro::split_a(bits, hi, lo);
+}
+
+enum Scale { kNoScale, kRowScale, kKScale };
+
+// acc += A B over the slab in one stage (3xTF32: lo.hi + hi.lo + hi.hi);
+// SC: A's values times scale[row of the tile] (kRowScale) or scale[k]
+// (kKScale) as they are loaded
+template <int BN, bool AK, bool BK, int SC>
+__device__ __forceinline__ void mma_ring(const float* A, const float* B,
+                                         const float* scale,
+                                         float (&acc)[2][4][4]) {
+  constexpr int kLdB = BN + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * 32;
+  auto ia = [](int m, int k) { return AK ? k * kLdA + m : m * kLdR + k; };
+  auto ib = [](int n, int k) { return BK ? k * kLdB + n : n * kLdR + k; };
+  float rs[2][2];
+  if (SC == kRowScale) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      rs[mt][0] = scale[m0 + 16 * mt + gid];
+      rs[mt][1] = scale[m0 + 16 * mt + gid + 8];
+    }
+  }
+#pragma unroll
+  for (int k0 = 0; k0 < kRS; k0 += 8) {
+    unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int m = m0 + 16 * mt + gid;
+      float a[4] = {A[ia(m, k0 + tig)], A[ia(m + 8, k0 + tig)],
+                    A[ia(m, k0 + tig + 4)], A[ia(m + 8, k0 + tig + 4)]};
+      if (SC == kRowScale) {
+        a[0] *= rs[mt][0];
+        a[1] *= rs[mt][1];
+        a[2] *= rs[mt][0];
+        a[3] *= rs[mt][1];
+      } else if (SC == kKScale) {
+        const float s0 = scale[k0 + tig], s1 = scale[k0 + tig + 4];
+        a[0] *= s0;
+        a[1] *= s0;
+        a[2] *= s1;
+        a[3] *= s1;
+      }
+      split_frag(a, ah[mt], al[mt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + 8 * nt + gid;
+      const float b[2] = {B[ib(n, k0 + tig)], B[ib(n, k0 + tig + 4)]};
+      split_frag(b, bh[nt], bl[nt]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+        mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+        mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+      }
+  }
+}
+
+// the place (outer, inner) of a slab in a loop of n inner slabs an outer
+// step, advanced one slab at a time, with no division a slab: a launch
+// keeps one for each of the ring's callbacks, which see the slabs in order
+struct Walk {
+  int outer, inner, n;
+  __device__ explicit Walk(int n_) : outer(0), inner(0), n(n_) {}
+  __device__ void next() {
+    if (++inner == n) {
+      inner = 0;
+      ++outer;
+    }
+  }
+};
+
+// the ring's loop over nslab slabs: issue(s, stage) starts slab s's copies
+// (each thread its share), prep(s, stage) may rewrite the values this thread
+// copied once they have landed, step(s, stage) runs the slab's products.
+// STAGES - 1 slabs are in flight while one is multiplied; one block barrier
+// a slab. Nothing is in flight when it returns.
+template <int STAGES, typename Issue, typename Prep, typename Step>
+__device__ __forceinline__ void ring_loop(int nslab, Issue issue, Prep prep,
+                                          Step step) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nslab) issue(s, s);
+    repro::cp_async_commit();
+  }
+  for (int s = 0; s < nslab; ++s) {
+    repro::cp_async_wait<STAGES - 2>();
+    const int st = s % STAGES;
+    prep(s, st);
+    __syncthreads();   // slab s visible; stage s - 1 free
+    const int nx = s + STAGES - 1;
+    if (nx < nslab) issue(nx, nx % STAGES);
+    repro::cp_async_commit();
+    step(s, st);
+  }
+  repro::cp_async_wait<0>();
+}
+
+// row (0..63) and column (0..BN-1) of element e of acc[mt][nt]
+__device__ __forceinline__ int ring_row(int mt, int e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp & 1) * 32 + 16 * mt + (lane >> 2) + (e >> 1) * 8;
+}
+__device__ __forceinline__ int ring_col(int nt, int e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp >> 1) * 32 + 8 * nt + 2 * (lane & 3) + (e & 1);
+}
+
+__device__ __forceinline__ void zero_ring(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 }
 
 struct Shape {

@@ -14,6 +14,9 @@ reference's chunked sums against a sequential recurrence, exponents of
 cumsums that reach tens); the model 1e-6 (fp64 against the fp32 plain
 backward); on the card the forward's rule, 1e-4 of the largest element,
 plus one bf16 step of the value for bf16 outputs."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -29,6 +32,10 @@ from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd, ssd_scan_fwd  # no
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref  # noqa: E402
 
 CPU_REL_TOL = 1e-4
+# ssd_bwd_w's head groups (the blocks of one cluster), from the kernel
+HEAD_GROUPS = int(re.search(r"constexpr int kHG = (\d+);", (
+    Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/"
+    "ssd_scan_bwd.cu").read_text()).group(1))
 
 CASES = [  # batch, S, heads, P, N, chunk, slow decay, final-state gradient
     (2, 37, 4, 8, 16, 16, False, True),    # ragged, B/C shared by 4 heads
@@ -152,10 +159,15 @@ def test_plain_backward_matches_autograd(g):
 
 def _chunked_bwd_model(x, bm, cm, dt, da, dy, dstate, g, q):
     """The backward kernel's decomposition (csrc/ssd_scan_bwd.cu), in the
-    tensors' dtype: per (head, chunk) the states entering each chunk, dH by
-    the reverse pass over chunks, W summed over the heads of a B/C row, the
-    column sums Cs, U, and dda as the reverse cumsum sum_{i>=k} (dy_i . y_i
-    - Cs_i) + E + sum_{j<k} U_j."""
+    tensors' dtype and the kernel's order: per (head, chunk) the states
+    entering each chunk; dH by the fused reverse walk over chunks (dstate
+    seeds the carry, each chunk scales it by exp(cum_end) and adds its own
+    term, slot c gets dH_{c+1}); W per B/C row summed over head groups of
+    g / HG heads, each group's heads in order and the HG partials in rank
+    order; the column sums Cs by 32-row group; dx's state part first, the
+    decayed scores times dy added to it; dC and dB as the W product, then
+    the state terms head by head; U, and dda as the reverse cumsum
+    sum_{i>=k} (dy_i . y_i - Cs_i) + E + sum_{j<k} U_j."""
     bh, s, p = x.shape
     n = bm.shape[-1]
     nch = -(-s // q)
@@ -165,61 +177,82 @@ def _chunked_bwd_model(x, bm, cm, dt, da, dy, dstate, g, q):
     dx, db, dc, ddt, dda = outs
     cum = torch.cat([torch.cumsum(da[:, c:c + q], 1) for c in range(0, s, q)],
                     1)
+    sls = [slice(c * q, min(s, c * q + q)) for c in range(nch)]
     enter = torch.zeros(bh, nch, p, n, dtype=x.dtype)
     dh = torch.zeros(bh, nch, p, n, dtype=x.dtype)
     for h in range(bh):
         r, st = h // g, torch.zeros(p, n, dtype=x.dtype)
-        for c in range(nch):
-            sl = slice(c * q, min(s, c * q + q))
+        for c, sl in enumerate(sls):
             cu = cum[h, sl]
             enter[h, c] = st
             st = torch.exp(cu[-1]) * st + ((dt[h, sl] * torch.exp(
                 cu[-1] - cu))[:, None] * x[h, sl]).T @ bm[r, sl]
-            dh[h, c] = (torch.exp(cu)[:, None] * dy[h, sl]).T @ cm[r, sl]
         acc = dstate[h].clone() if dstate is not None else \
             torch.zeros(p, n, dtype=x.dtype)
-        for c in reversed(range(nch)):
-            cu = cum[h, c * q:min(s, c * q + q)]
-            own, dh[h, c] = dh[h, c].clone(), acc
-            acc = torch.exp(cu[-1]) * acc + own
+        dh[h, nch - 1] = acc
+        for c in range(nch - 1, 0, -1):   # chunk 0's own term: unused
+            cu = cum[h, sls[c]]
+            acc = torch.exp(cu[-1]) * acc + (torch.exp(cu)[:, None] * dy[
+                h, sls[c]]).T @ cm[r, sls[c]]
+            dh[h, c - 1] = acc
+    nrg = 2 * -(-q // 64)   # the column sums' 32-row groups
     for r in range(bh // g):
-        for c in range(nch):
-            sl = slice(c * q, min(s, c * q + q))
+        for c, sl in enumerate(sls):
             qc = sl.stop - sl.start
             cb = cm[r, sl] @ bm[r, sl].T
             mask = torch.tril(torch.ones(qc, qc, dtype=torch.bool))
             w = torch.zeros(qc, qc, dtype=x.dtype)
-            for hh in range(g):
-                h = r * g + hh
+            for hg in range(HEAD_GROUPS):
+                part = torch.zeros(qc, qc, dtype=x.dtype)
+                for h in range(r * g + hg * g // HEAD_GROUPS,
+                               r * g + (hg + 1) * g // HEAD_GROUPS):
+                    cu = cum[h, sl]
+                    dec = torch.where(mask, torch.exp(torch.where(
+                        mask, cu[:, None] - cu[None, :], 0.0)), 0.0)
+                    wh = (dy[h, sl] @ x[h, sl].T) * dec * dt[h, sl][None, :]
+                    part += wh
+                    cs = torch.zeros(nrg, qc, dtype=x.dtype)
+                    for rg in range(min(nrg, -(-qc // 32))):
+                        rows = slice(32 * rg, 32 * rg + 32)
+                        cs[rg] = (wh[rows] * cb[rows]).sum(0)
+                    f = torch.exp(cu[-1] - cu)
+                    st = f[:, None] * (bm[r, sl] @ dh[h, c].T)
+                    inner = st + (cb * dec).T @ dy[h, sl]
+                    dx[h, sl] = dt[h, sl][:, None] * inner
+                    ddt[h, sl] = (x[h, sl] * inner).sum(1)
+                    u = dt[h, sl] * (x[h, sl] * st).sum(1)
+                    e = torch.exp(cu[-1]) * (dh[h, c] * enter[h, c]).sum()
+                    csum = torch.stack([cs[2 * (j // 64):2 * -(-qc // 64)]
+                                        .sum(0)[j] for j in range(qc)])
+                    v = (dy[h, sl] * y[h, sl]).sum(1) - csum
+                    dda[h, sl] = torch.flip(torch.cumsum(torch.flip(
+                        v, [0]), 0), [0]) + e + torch.cumsum(u, 0) - u
+                w = w + part
+            dc[r, sl] = w @ bm[r, sl]
+            db[r, sl] = w.T @ cm[r, sl]
+            for h in range(r * g, r * g + g):
                 cu = cum[h, sl]
-                dec = torch.where(mask, torch.exp(torch.where(
-                    mask, cu[:, None] - cu[None, :], 0.0)), 0.0)
-                wh = (dy[h, sl] @ x[h, sl].T) * dec * dt[h, sl][None, :]
-                w += wh
-                f = torch.exp(cu[-1] - cu)
-                g1 = (cb * dec).T @ dy[h, sl]
-                g2 = f[:, None] * (bm[r, sl] @ dh[h, c].T)
-                dx[h, sl] = dt[h, sl][:, None] * (g1 + g2)
-                ddt[h, sl] = (x[h, sl] * (g1 + g2)).sum(1)
-                u = dt[h, sl] * (x[h, sl] * g2).sum(1)
-                e = torch.exp(cu[-1]) * (dh[h, c] * enter[h, c]).sum()
-                v = (dy[h, sl] * y[h, sl]).sum(1) - (wh * cb).sum(0)
-                dda[h, sl] = torch.flip(torch.cumsum(torch.flip(v, [0]), 0),
-                                        [0]) + e + torch.cumsum(u, 0) - u
-                dc[r, sl] += torch.exp(cu)[:, None] * (dy[h, sl] @ enter[h, c])
-                db[r, sl] += (dt[h, sl] * f)[:, None] * (x[h, sl] @ dh[h, c])
-            dc[r, sl] += w @ bm[r, sl]
-            db[r, sl] += w.T @ cm[r, sl]
+                if c > 0:
+                    dc[r, sl] += torch.exp(cu)[:, None] * (
+                        dy[h, sl] @ enter[h, c])
+                db[r, sl] += (dt[h, sl] * torch.exp(cu[-1] - cu))[:, None] \
+                    * (x[h, sl] @ dh[h, c])
     return outs
 
 
-@pytest.mark.parametrize("g,bh,s,p,n,q", [(4, 8, 37, 3, 5, 16),
-                                          (1, 3, 20, 4, 6, 7),
-                                          (2, 2, 16, 3, 3, 16)])
+@pytest.mark.parametrize("g,bh,s,p,n,q", [
+    (4, 8, 37, 3, 5, 16), (1, 3, 20, 4, 6, 7), (2, 2, 16, 3, 3, 16),
+    (2, 4, 10, 3, 5, 16),      # one chunk: S below the chunk
+    (2, 4, 150, 3, 5, 70),     # chunks of 70: not whole slabs or tiles
+    (1, 2, 90, 80, 96, 64),    # g 1; P past a 64 tile, N short of 128
+    (8, 8, 70, 5, 7, 32),      # two heads in each of the 4 head groups
+    (3, 6, 50, 4, 6, 16),      # g 3: a head group with no heads
+])
 def test_kernel_decomposition_matches_plain_backward(g, bh, s, p, n, q):
-    """The chunked form the kernel computes (in fp64) equals the sequential
-    reverse recurrence: ragged chunks, g 1 and g > 1, a final-state
-    gradient."""
+    """The chunked form the kernel computes (in fp64), in the kernel's
+    order, equals the sequential reverse recurrence: ragged chunks, one
+    chunk, chunks that are not whole slabs, g 1, g > 1 over the head
+    groups, P and N off the tile widths, a final-state gradient."""
     rng = np.random.default_rng(s)
     t = [torch.tensor(v) for v in (
         rng.standard_normal((bh, s, p)), rng.standard_normal((bh // g, s, n)),
@@ -273,6 +306,10 @@ def _assert_card_close(got, want, what):
     (2, 300, 72, 100, 128, 2, torch.float32, False, True),      # P, N past a tile
     (3, 10, 8, 16, 256, 3, torch.float32, False, True),         # S < chunk
     (4, 500, 64, 64, 256, 4, torch.float32, False, False),
+    (4, 700, 64, 96, 256, 4, torch.float32, False, True),       # N 96
+    (4, 700, 80, 128, 256, 4, torch.float32, False, True),      # P 80
+    (8, 2085, 64, 128, 256, 8, torch.float32, False, True),     # 9 chunks
+    (2, 1031, 64, 128, 256, 1, torch.float32, True, True),      # g 1, slow
 ])
 def test_ssd_scan_bwd_kernel_equals_plain(dev, bh, s, p, n, chunk, g, dtype,
                                           slow, state):
@@ -293,6 +330,25 @@ def test_ssd_scan_bwd_kernel_equals_plain(dev, bh, s, p, n, chunk, g, dtype,
     again = ssd_scan_bwd(x, bm, cm, dt, da, y, work, dy, dst, chunk=chunk,
                          heads_per_bc=g)
     assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bwd_kernel_repeats_are_bit_identical(dev):
+    """Ten calls back to back at mamba2's heads (64 a B/C row, BH 64) over
+    a ragged S: every output equal to the first call's, bit for bit (no
+    atomics; every sum in a fixed order)."""
+    rng = np.random.default_rng(7)
+    x, bm, cm, dt, da, dy = _card_inputs(rng, 64, 1031, 64, 128, 64,
+                                         torch.float32, dev, False)
+    dst = torch.as_tensor(rng.standard_normal((64, 64, 128)),
+                          dtype=torch.float32, device=dev)
+    y, _, work = ssd_scan_fwd(x, bm, cm, dt, da, heads_per_bc=64,
+                              return_work=True)
+    calls = [ssd_scan_bwd(x, bm, cm, dt, da, y, work, dy, dst,
+                          heads_per_bc=64) for _ in range(10)]
+    torch.cuda.synchronize()
+    for again in calls[1:]:
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(calls[0], again))
 
 
 @pytest.mark.gpu

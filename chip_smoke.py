@@ -25,7 +25,19 @@ Phases, each printing JSON lines:
      (one group and one tail layer) with a 2,100-token prompt, so that the
      prefill's window bites and the ring wraps. Two more requests of each
      model run under the profiler, one after the other, their records
-     counted (a lost record would read as idle time);
+     counted (a lost record would read as idle time). Then the MoE, VLM and
+     enc-dec families at full width and depth: granite-moe-3b-a800m (32
+     layers, d 1536, 24/8 heads of 64, 40 experts top 8 stored as 48,
+     vocab 49155) through the same executor; qwen2-vl-2b (28 layers, d
+     1536, 12/2 heads of 128, M-RoPE, vocab 151936; each request 1,000
+     patch embeddings with the t/h/w ids of a patch grid) and
+     seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d 1024, 16/16
+     heads of 64, vocab 256206; 4,096 frames, one request with 2,500, and a
+     64-token prompt) through the model bundle's prefill and decode_step
+     (the reference's executor cannot serve these two); each with its
+     exact launches, peak memory and a profile, and its card-vs-CPU check
+     on a 2-layer cut at full width (enc-dec: 1,000 frames, so that its
+     decode memory is zero-padded);
   3. claim: a 936-worker work queue of 100,000 tasks claims through the
      ``wq_claim`` kernel, and must return the claim dicts of the host path;
      each claim_all's wall ms, on the device path and the host path, and
@@ -49,7 +61,12 @@ Phases, each printing JSON lines:
      8.6 B parameters with AdamW do not fit one card; batch 4 x 4096 in its
      4 microbatches, so the 2048 window bites: the RG-LRU scan and flash at
      width 256, forward and backward kernels; the check one group at full
-     width, fp32, batch 1 x 256: loss, grad norm and every gradient);
+     width, fp32, batch 1 x 256: loss, grad norm and every gradient); then
+     granite-moe at full width with its depth cut (``MOE_TRAIN_LAYERS``;
+     batch 8 x 2048 in its 4 microbatches, peak under 75 GB), qwen2-vl-2b
+     and seamless at full width and depth (batch 8 x 2048; seamless: 2,048
+     frames and 256 decoder tokens), each checked on a 2-layer fp32 cut
+     with one AdamW step;
   5. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (``ssd_scan`` and ``rglru_scan`` also at a
      ragged length, in bf16, and in a slow-decay case where the state
@@ -74,10 +91,19 @@ Phases, each printing JSON lines:
      rows of it (one row a call), at a ragged S and in slow decay, the
      RG-LRU scan's at [1, 4096, 4096], ragged and slow, flash's
      forward with its LSE and backward at recurrentgemma-9b's heads, S 4096
-     in bf16 beside SDPA's, and at a ragged S in fp32), then one
-     ``{"kernels": [...]}`` line:
-     one entry per kernel and model that launches it, with that serve run's
-     launches and the device times of the kernel and of its library call.
+     in bf16 beside SDPA's, and at a ragged S in fp32; the MoE, VLM and
+     enc-dec paths' attention shapes: granite's and qwen2-vl's prefill and
+     decode, seamless's encoder (not causal, 4,096 and 2,500 frames), its
+     decoder's self-attention (64 prompt tokens at prefill, one query
+     over ~80 cached keys at decode), its cross-attention (64 queries over
+     4,096 or 2,500 frames at prefill, one over 4,096 at decode), and the
+     train paths' forward with LSE and backward, seamless's at its
+     encoder's 8 x 2,048, its decoder's 8 x 256 and its cross-attention's
+     256 x 2,048 not causal), then one ``{"kernels": [...]}`` line: one
+     entry per kernel, model and shape it runs there, with that run's
+     launches at the shape (its share of the kernel's count, where the run
+     gives it several shapes) and the device times of the kernel and of
+     its library call.
 Then a ``{"phase": "done"}`` line with the run's seconds (the build
 included), the card's name and power limit again, the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises:
@@ -87,6 +113,7 @@ card it refuses to run.
 from __future__ import annotations
 
 import dataclasses
+import fractions
 import functools
 import gc
 import json
@@ -103,7 +130,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import SteeringEngine, WorkQueue  # noqa: E402
-from repro_torch.data.pipeline import DataConfig, shard_batch  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_for  # noqa: E402
 from repro_torch.flags import device_claims  # noqa: E402
 from repro_torch.kernels import launch_counts, library, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # noqa: E402
@@ -121,8 +148,10 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref  # n
 from repro_torch.kernels.wq_claim.kernel import empty_launch as wq_claim_empty_launch  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
-from repro_torch.launch.steps import (copy_params, init_train_state,  # noqa: E402
-                                      loss_and_grads, make_train_step)
+from repro_torch.launch.steps import (cast_params, copy_params,  # noqa: E402
+                                      init_train_state, loss_and_grads,
+                                      make_train_step)
+from repro_torch.models.moe import MoE  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.transformer import hybrid_counts  # noqa: E402
 from repro_torch.optim import init_opt  # noqa: E402
@@ -158,6 +187,13 @@ HYBRID_MAX_PEAK_BYTES = 56e9
 # activations); past this the cut would have to go to 1 group + 1 tail
 HYBRID_TRAIN_MAX_PEAK_BYTES = 75e9
 HYBRID_TRAIN_LAYERS = 8
+# granite-moe-3b-a800m's train run at full width: its 3.90 B stored
+# parameters (the experts padded 40 -> 48) at ~18 bytes each with AdamW
+# (fp32 params, gradients and two moments, the bf16 cast) are ~70 GB before
+# activations and the microbatches' second set of gradients, so its depth
+# is cut to what keeps the peak under the hybrid's 75 GB
+MOE_TRAIN_MAX_PEAK_BYTES = 75e9
+MOE_TRAIN_LAYERS = 21
 # the flash backward against its plain version: fp32 sums of up to S x g
 # terms in another order, 1e-4 of the gradient's largest element; bf16 also
 # one bf16 step of the value (both sides round once from fp32). The row
@@ -177,6 +213,14 @@ LSE_TOL = 1e-4
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GNORM_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+# the card-vs-CPU checks of the MoE family pin the CPU's routing to the
+# card's (``RoutePin``) and count the tokens the CPU would have routed
+# otherwise: near ties of two experts within the devices' rounding. Readings
+# on an H100 (chip_smoke of the MoE port): 2 of 8,192 decisions in the
+# 2-layer fp32 train check, 1 of 80 in the serve check (bf16 decode steps
+# among them). Held to the larger of 2 tokens and 1e-3 of the decisions; a
+# wrong router or top-k on the card would move most of them
+ROUTE_FLIPS = {"min": 2, "share": 1e-3}
 # mamba2's A_log gradient is a sum over the batch's positions of dda dt a,
 # whose terms cancel 280-500x at this check's inputs (the CPU's plain
 # backward); the chunked form's dda in fp32 (the card's kernel, and a model
@@ -215,7 +259,11 @@ REPLACES = {"wq_claim": "src/repro/kernels/wq_claim/kernel.py:32",
 def layers_of(cfg, kind: str) -> int:
     """How many layers of ``kind`` ("attn", "rec", "ssm") a config has; the
     hybrid's are counted from its pattern (groups, then the tail's rec
-    layers)."""
+    layers). For enc-dec, "attn" counts the attention calls of one forward:
+    the encoder's self-attention, the decoder's self- and cross-attention."""
+    if cfg.family == "encdec":
+        return cfg.num_encoder_layers + 2 * cfg.num_layers \
+            if kind == "attn" else 0
     if cfg.family == "hybrid":
         ng, nt = hybrid_counts(cfg)
         return ng * cfg.rglru.pattern.count(kind) + (nt if kind == "rec"
@@ -228,14 +276,22 @@ def layers_of(cfg, kind: str) -> int:
 # phase), as functions of (config, requests, new tokens): one flash launch
 # per attention layer and prefill, one decode launch per attention layer
 # and decode step (the first token comes from the prefill), one SSD or
-# RG-LRU scan per recurrent layer and prefill
+# RG-LRU scan per recurrent layer and prefill. Enc-dec: its prefill's
+# attention calls (encoder, decoder self and cross) each a flash launch, its
+# decode step's two a layer (self against the cache, cross against the
+# cached encoder frames) each a decode launch
 def _attention_launches(cfg, r, new):
     n = layers_of(cfg, "attn")
-    return {"flash_attention": n * r, "decode_attention": n * r * (new - 1)}
+    per_step = 2 * cfg.num_layers if cfg.family == "encdec" else n
+    return {"flash_attention": n * r,
+            "decode_attention": per_step * r * (new - 1)}
 
 
 SERVE_LAUNCHES = {
     "dense": _attention_launches,
+    "moe": _attention_launches,
+    "vlm": _attention_launches,
+    "encdec": _attention_launches,
     "ssm": lambda cfg, r, new: {"ssd_scan": layers_of(cfg, "ssm") * r},
     "hybrid": lambda cfg, r, new: {"rglru_scan": layers_of(cfg, "rec") * r,
                                    **_attention_launches(cfg, r, new)},
@@ -347,13 +403,22 @@ def phase_serve(cfg, device, *, requests=8, prompt_len=1000, max_new=32,
     return {"result": res, "executor": ex}
 
 
-def _logits_run(model, params, dparams, tokens, steps, device, feed=None):
-    """Prefill ``tokens`` with ``params``, then ``steps`` decode steps with
-    ``dparams``, fed ``feed`` or the greedy tokens. Returns the logits of
-    every step (fp32, on the CPU) and the tokens fed."""
+def _prompt_len(batch) -> int:
+    """The prompt's length: its tokens (enc-dec: the decoder's), or its
+    patch embeddings."""
+    return (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
+
+
+def _logits_run(model, params, dparams, batch, steps, device, feed=None):
+    """Prefill ``batch`` (CPU tensors: tokens, or a VLM's embeds and M-RoPE
+    ids, or an enc-dec's frames and tokens) with ``params``, then ``steps``
+    decode steps with ``dparams``, fed ``feed`` or the greedy tokens.
+    Returns the logits of every step (fp32, on the CPU) and the tokens
+    fed."""
     with torch.no_grad():
-        lg, cache = model.prefill(params, {"tokens": tokens.to(device)},
-                                  tokens.shape[1] + steps + 1)
+        lg, cache = model.prefill(params, {k: v.to(device)
+                                           for k, v in batch.items()},
+                                  _prompt_len(batch) + steps + 1)
         out, fed = [lg.float().cpu()], []
         for s in range(steps):
             tok = feed[s] if feed is not None else \
@@ -362,6 +427,72 @@ def _logits_run(model, params, dparams, tokens, steps, device, feed=None):
             lg, cache = model.decode_step(dparams, tok.to(device), cache)
             out.append(lg.float().cpu())
     return out, fed
+
+
+class RoutePin:
+    """Pins the MoE routing of a second run to that of a first one on the
+    same inputs (the card's, recorded, against the CPU's), so that the two
+    compute the same function. Top-k is discontinuous: where two experts'
+    probabilities lie within the runs' rounding of each other (the fp32
+    logits differ by ~1e-6 between the devices, more after a bf16 layer),
+    the two runs can route a token to different experts, and its output and
+    gradients then differ by far more than any limit. Set as each MoE
+    layer's ``pin`` (``models/moe.py``) for a run: the first run records
+    each router call's expert ids; the second, call by call in the same
+    order, takes those ids, weighed by its own probabilities, and counts
+    the tokens whose own choice (set or order) differed: ``differences`` of
+    ``decisions``, held to :data:`ROUTE_FLIPS` (a card that routed by wrong
+    probabilities or a wrong top-k would differ on most tokens). A config
+    without experts runs as it is."""
+
+    def __init__(self, cfg):
+        self.moe = cfg.moe is not None
+        self.calls, self.mode, self.at = [], None, 0
+        self.differences, self.decisions = 0, 0
+
+    def __call__(self, idx):
+        if self.mode == "record":
+            self.calls.append(idx.cpu())
+            return idx
+        want = self.calls[self.at].to(idx.device)
+        self.at += 1
+        self.differences += int((idx != want).any(-1).sum())
+        self.decisions += idx.shape[0]
+        return want
+
+    def run(self, mode: str, params, fn, *args):
+        """``fn(*args)`` with the MoE layers of the modules ``params``
+        routing through the pin: their choice recorded ("record") or pinned
+        to the recorded one ("replay")."""
+        if not self.moe:
+            return fn(*args)
+        self.mode, self.at = mode, 0
+        if mode == "record":
+            self.calls = []
+        layers = [m for p in params for m in p.modules()
+                  if isinstance(m, MoE)]
+        for m in layers:
+            m.pin = self
+        try:
+            return fn(*args)
+        finally:
+            for m in layers:
+                m.pin = None
+            self.mode = None
+
+    def check(self) -> None:
+        """Fails past :data:`ROUTE_FLIPS` tokens routed otherwise."""
+        limit = max(ROUTE_FLIPS["min"], ROUTE_FLIPS["share"] * self.decisions)
+        check(self.differences <= limit,
+              f"{self.differences} of {self.decisions} routing decisions "
+              f"differ between the card and the CPU (limit {limit})")
+
+    def summary(self) -> dict:
+        return {"route_differences": self.differences,
+                "route_decisions": self.decisions,
+                "route_differences_limit": max(
+                    ROUTE_FLIPS["min"], ROUTE_FLIPS["share"] *
+                    self.decisions)} if self.moe else {}
 
 
 def cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
@@ -374,13 +505,26 @@ def phase_serve_check(ex, *, prompt_len=37, steps=3, seed=1) -> dict:
     """The executor's model on its device against a CPU copy of the same
     weights (plain versions), on the same tokens: prefill logits in the
     master dtype, then ``steps`` decode steps in ``cfg.dtype``."""
-    cfg = ex.cfg
     tokens = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (1, prompt_len)).astype(np.int32))
-    ref, fed = _logits_run(ex.model, cpu_copy(ex.params),
-                           cpu_copy(ex.decode_params), tokens, steps, "cpu")
-    got, _ = _logits_run(ex.model, ex.params, ex.decode_params, tokens,
-                         steps, ex.device, feed=fed)
+        0, ex.cfg.vocab_size, (1, prompt_len)).astype(np.int32))
+    return _serve_check(ex.cfg, ex.model, ex.params, ex.decode_params,
+                        {"tokens": tokens}, steps, ex.device)
+
+
+def _serve_check(cfg, model, params, dparams, batch, steps, device,
+                 **extra) -> dict:
+    """``model`` on ``device`` against a CPU copy of the same weights
+    (plain versions) on the same ``batch``: prefill logits in the master
+    dtype, then ``steps`` greedy decode steps in ``cfg.dtype``, each within
+    ``SERVE_TOL`` of the logits' size."""
+    pin = RoutePin(cfg)   # the CPU's routing pinned to the card's
+    host, host_d = cpu_copy(params), cpu_copy(dparams)
+    got, fed = pin.run("record", (params, dparams), _logits_run, model,
+                       params, dparams, batch, steps, device)
+    ref, _ = pin.run("replay", (host, host_d), functools.partial(
+        _logits_run, feed=fed), model, host, host_d, batch, steps, "cpu")
+    del host, host_d
+    pin.check()
     errs = []
     for i, (a, b) in enumerate(zip(got, ref)):
         dt = getattr(torch, cfg.param_dtype if i == 0 else cfg.dtype)
@@ -392,8 +536,8 @@ def phase_serve_check(ex, *, prompt_len=37, steps=3, seed=1) -> dict:
         check(bool(torch.isfinite(a).all()), f"non-finite logits at {i}")
         check(err <= tol, f"logits step {i}: {err} > {tol}")
     res = {"phase": "serve_check", "arch": cfg.name,
-           "layers": cfg.num_layers, "prompt_len": prompt_len,
-           "steps": errs}
+           "layers": cfg.num_layers, "prompt_len": _prompt_len(batch),
+           **extra, **pin.summary(), "steps": errs}
     emit(res)
     return res
 
@@ -410,6 +554,146 @@ def phase_hybrid_check(cfg, device, *, layers=4, prompt_len=2100, steps=3,
     res = phase_serve_check(ex, prompt_len=prompt_len, steps=steps,
                             seed=seed)
     del ex
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def grid_positions(s: int, width: int) -> np.ndarray:
+    """[3,1,S] int32 M-RoPE ids of S patches in rows of ``width``: t
+    constant, h the row, w the column (three distinct streams: with equal
+    ones M-RoPE is RoPE, and its sections would go unchecked)."""
+    i = np.arange(s)
+    return np.stack([np.zeros(s), i // width, i % width])[:, None] \
+        .astype(np.int32)
+
+
+def request_inputs(cfg, rng, prompt_len: int, frames: int = 0) -> dict:
+    """One request's prefill batch (batch 1, CPU tensors, made with numpy):
+    a VLM's ``prompt_len`` patch embeddings (N(0, 0.1^2), as the data
+    pipeline makes them) on a grid 40 patches wide; an enc-dec's ``frames``
+    frame embeddings and a ``prompt_len``-token prompt; else tokens."""
+    def emb(n):
+        return torch.as_tensor((rng.standard_normal((1, n, cfg.d_model))
+                                * 0.1).astype(np.float32))
+    if cfg.family == "encdec":
+        return {"frames": emb(frames), "tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, prompt_len))
+            .astype(np.int32))}
+    if cfg.embed_stub:
+        return {"embeds": emb(prompt_len), "mrope_positions":
+                torch.as_tensor(grid_positions(prompt_len, 40))}
+    return {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, prompt_len)).astype(np.int32))}
+
+
+def bundle(cfg, device, seed=0):
+    """The model bundle and its params on ``device`` as ``ServeExecutor``
+    holds them: the master params (``cfg.param_dtype``, no grad) and one
+    copy in ``cfg.dtype`` for decode."""
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    params.requires_grad_(False)
+    return model, params, cast_params(params, cfg.dtype)
+
+
+def phase_serve_bundle(cfg, device, *, requests=8, prompt_len=1000,
+                       frames=(), max_new=32, max_len=4096, seed=0,
+                       profile=True) -> dict:
+    """Serve ``requests`` one after another through the model bundle (the
+    reference's ``build_model`` API, which its own tests drive: its
+    ``ServeExecutor`` feeds token prompts alone, so it cannot serve the VLM
+    or enc-dec families, and neither can the port's), with the executor's
+    split: prefill with the master params, ``max_new - 1`` greedy decode
+    steps with the ``cfg.dtype`` copy against the ``cfg.dtype`` cache. A
+    VLM request is ``prompt_len`` patch embeddings with M-RoPE ids of a
+    patch grid; an enc-dec request ``frames[i]`` frames (``cross_kv_len``
+    unless fewer are named) and a ``prompt_len``-token prompt. Launches,
+    wall time and peak memory as :func:`phase_serve`; then, on the card, 2
+    more requests (8 decode steps) under the profiler."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(device)
+    model, params, dparams = bundle(cfg, device, seed)
+    init_peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    rng = np.random.default_rng(seed)
+    n_frames = [(list(frames) + [cfg.cross_kv_len] * requests)[i]
+                for i in range(requests)] if cfg.family == "encdec" else \
+        [0] * requests
+    batches = [request_inputs(cfg, rng, prompt_len, f) for f in n_frames]
+
+    def serve(batch, new):
+        with torch.no_grad():
+            logits, cache = model.prefill(
+                params, {k: v.to(device) for k, v in batch.items()}, max_len)
+            out = [torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)]
+            for _ in range(new - 1):
+                logits, cache = model.decode_step(dparams, out[-1], cache)
+                out.append(torch.argmax(logits[:, -1], -1)[:, None]
+                           .to(torch.int32))
+        return torch.cat(out, 1)[0].cpu().numpy()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [serve(b, max_new) for b in batches]
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = SERVE_LAUNCHES[cfg.family](cfg, requests, max_new)
+    tokens = int(sum(len(o) for o in outs))
+    check(all(len(o) == max_new for o in outs), "output lengths")
+    check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs),
+          "token ids out of range")
+    res = {"phase": "serve", "arch": cfg.name, "device": str(device),
+           "path": "model bundle (prefill / decode_step)",
+           "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers or None,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "vocab": cfg.vocab_size, "requests": requests,
+           "prompt_len": prompt_len,
+           "frames": n_frames if cfg.family == "encdec" else None,
+           "finished": len(outs), "tokens_generated": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "init_peak_mem_bytes": init_peak,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                              if on_card else None),
+           "launches": {k: counts[k] for k in want}}
+    if on_card:
+        for k, n in counts.items():
+            check(n == want.get(k, 0), f"{k} launches {n} != "
+                  f"{want.get(k, 0)} ({cfg.name})")
+    emit(res)
+    if on_card and profile:
+        sync(device)
+        prof = {"phase": "serve_profile", "arch": cfg.name,
+                "prompt_len": prompt_len, "decode_steps": 8, "requests": 2,
+                **_profile_result(profile_calls(
+                    lambda: serve(batches[0], 9), 2))}
+        emit(prof)
+    del model, params, dparams
+    return res
+
+
+def phase_family_check(cfg, device, *, layers=2, prompt_len=37, frames=0,
+                       steps=3, seed=1) -> dict:
+    """The serve check on a ``layers``-layer cut of ``cfg`` at full width
+    (enc-dec: ``layers`` encoder and decoder layers): prefill and ``steps``
+    greedy decode steps through the model bundle on the card against a CPU
+    copy of the same weights (plain versions). The VLM's prompt is patch
+    embeddings on a grid; the enc-dec's ``frames`` frames, fewer than
+    ``cross_kv_len``, so that its decode memory is zero-padded."""
+    c = dataclasses.replace(cfg, num_layers=layers, **(
+        {"num_encoder_layers": layers} if cfg.family == "encdec" else {}))
+    model, params, dparams = bundle(c, device, seed)
+    batch = request_inputs(c, np.random.default_rng(seed), prompt_len, frames)
+    res = _serve_check(c, model, params, dparams, batch, steps, device,
+                       **({"frames": frames, "cross_kv_len": c.cross_kv_len}
+                          if c.family == "encdec" else {}))
+    del model, params, dparams
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -584,7 +868,8 @@ def phase_train_check(cfg, device, *, layers=2, batch=2, seq_len=256, seed=3,
     embedding and of those named by ``prefixes`` after one optimizer step
     (without it, loss and grad norm are those of the gradients alone)."""
     t_phase = time.perf_counter()
-    c = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    c = dataclasses.replace(cfg, num_layers=layers, dtype="float32", **(
+        {"num_encoder_layers": layers} if cfg.family == "encdec" else {}))
     gen = torch.Generator(device=device).manual_seed(seed)
     if step:
         card = init_train_state(c, gen)
@@ -594,29 +879,44 @@ def phase_train_check(cfg, device, *, layers=2, batch=2, seq_len=256, seed=3,
     host = {"params": host_params}
     if step:
         host["opt"] = init_opt(c, host_params)
-    tok = shard_batch(DataConfig(vocab_size=c.vocab_size, seq_len=seq_len,
-                                 batch_size=batch), seed)
+    tok = batch_for(c, DataConfig(vocab_size=c.vocab_size, seq_len=seq_len,
+                                  batch_size=batch), seed)
     b_card = {k: torch.as_tensor(v, device=device) for k, v in tok.items()}
     b_host = {k: torch.as_tensor(v) for k, v in tok.items()}
-    l_card, _, g_card = loss_and_grads(c, card["params"], b_card)
+    pin = RoutePin(c)     # the CPU's routing pinned to the card's
+    l_card, _, g_card = pin.run("record", (card["params"],), loss_and_grads,
+                                c, card["params"], b_card)
     zero = [n for n, g in g_card.items() if not bool((g != 0).any())]
     check(not zero, f"no gradient on the card for {zero}")
-    l_host, _, g_host = loss_and_grads(c, host["params"], b_host)
-    grad_err = {}
+    l_host, _, g_host = pin.run("replay", (host["params"],), loss_and_grads,
+                                c, host["params"], b_host)
+    pin.check()
+    grad_err, limits = {}, {}
     for n, g in g_host.items():
         if n.endswith("attn.k.bias"):
             continue
-        err = float((g_card[n].cpu() - g).abs().max()) / float(g.abs().max())
-        grad_err[n] = err
-        tol = next((t for k, t in TRAIN_GRAD_TOL_BY_NAME.items()
-                    if n.endswith(k)), TRAIN_GRAD_TOL)
-        check(err <= tol, f"gradient {n}: {err} of its largest (limit "
-              f"{tol})")
+        gc_ = g_card[n].cpu()
+        if ".moe." in n and n.rsplit(".", 1)[1] in ("up", "gate", "down"):
+            # the padding experts get no tokens: no gradient on either side
+            e = c.moe.num_experts
+            check(not gc_[e:].any(), f"a padding expert of {n} has a "
+                  f"gradient")
+            g, gc_ = g[:e], gc_[:e]
+        grad_err[n] = float((gc_ - g).abs().max()) / float(g.abs().max())
+        limits[n] = next((t for k, t in TRAIN_GRAD_TOL_BY_NAME.items()
+                          if n.endswith(k)), TRAIN_GRAD_TOL)
+    top = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
+    for n, err in grad_err.items():
+        check(err <= limits[n], f"gradient {n}: {err} of its largest (limit "
+              f"{limits[n]}); the largest: {top}; {pin.summary()}")
     param_err = None
     if step:
         train_step = make_train_step(c)
-        card, m_card = train_step(card, b_card, {"lr": lr})
-        host, m_host = train_step(host, b_host, {"lr": lr})
+        card, m_card = pin.run("record", (card["params"],), train_step,
+                               card, b_card, {"lr": lr})
+        host, m_host = pin.run("replay", (host["params"],), train_step,
+                               host, b_host, {"lr": lr})
+        pin.check()
         loss_c, loss_h = float(m_card["loss"]), float(m_host["loss"])
         gn_c, gn_h = float(m_card["grad_norm"]), float(m_host["grad_norm"])
     else:
@@ -655,8 +955,8 @@ def phase_train_check(cfg, device, *, layers=2, batch=2, seq_len=256, seed=3,
            "max_grad_err_over_largest": max(grad_err.values()),
            "grad_tol": TRAIN_GRAD_TOL,
            "grad_tol_by_name": TRAIN_GRAD_TOL_BY_NAME,
-           "grad_err_top": sorted(grad_err.items(), key=lambda kv: -kv[1])[:4],
-           "params": param_err,
+           "grad_err_top": top,
+           **pin.summary(), "params": param_err,
            "seconds": time.perf_counter() - t_phase}
     emit(res)
     del card, host, host_params, g_card, g_host
@@ -897,22 +1197,33 @@ def _attn_error(got, ref, what: str) -> dict:
             "tol": f"{FP32_TOL} + 2**-7 * |ref|" if bf16 else FP32_TOL}
 
 
-def flash_pairs(s: int, window: int = 0) -> int:
-    """(query, key) pairs a causal, optionally windowed, attention over S
-    positions computes: query i sees min(i + 1, window) keys."""
-    if not window or window >= s:
+def flash_pairs(s: int, window: int = 0, skv: int = 0,
+                causal: bool = True) -> int:
+    """(query, key) pairs an attention of S queries over ``skv`` keys (S by
+    default) computes: causal, query i sees keys up to i; windowed, the
+    last ``window`` of those; neither, all of them."""
+    skv = skv or s
+    if not causal and not window:
+        return s * skv
+    if causal and skv == s and (not window or window >= s):
         return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
+    i = np.arange(s)
+    hi = np.minimum(i + 1, skv) if causal else np.full(s, skv)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
-def _sdpa_call(q, k, v, window, grad=False):
-    """SDPA of the same function on [B,H,S,dh] copies of q, k, v (causal,
-    the window as a mask), the yardstick only; with ``grad`` the copies
-    require grad."""
+def _sdpa_call(q, k, v, window, grad=False, causal=True):
+    """SDPA of the same function on [B,H,S,dh] copies of q, k, v (causal
+    unless ``causal`` is false, the window as a mask), the yardstick only;
+    with ``grad`` the copies require grad."""
     s = q.shape[1]
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(grad)
                   for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not causal and not window:
+        return functools.partial(sdpa, qt, kt, vt, enable_gqa=True), \
+            (qt, kt, vt)
     if window and window < s:      # the same function: the window as a mask
         i = torch.arange(s, device=q.device)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
@@ -923,69 +1234,83 @@ def _sdpa_call(q, k, v, window, grad=False):
 
 
 def _flash_case(dev, s, hq, hkv, dh, dtype, rng, window=0, arch=None, b=1,
-                lse=False):
+                lse=False, skv=0, causal=True):
     """The forward against its plain version; with ``lse`` it also writes
     the row log-sum-exp (the train path's variant), held against
-    :func:`flash_attention_lse_ref`."""
-    q, k, v = (torch.as_tensor(rng.standard_normal((b, s, h, dh)),
-                               dtype=torch.float32, device=dev).to(dtype)
-               for h in (hq, hkv, hkv))
-    fa = functools.partial(flash_attention_fwd, q, k, v, causal=True,
+    :func:`flash_attention_lse_ref`. ``skv`` keys (S by default) and
+    ``causal``: the encoder's and the cross-attention's shapes."""
+    skv = skv or s
+    q = torch.as_tensor(rng.standard_normal((b, s, hq, dh)),
+                        dtype=torch.float32, device=dev).to(dtype)
+    k, v = (torch.as_tensor(rng.standard_normal((b, skv, hkv, dh)),
+                            dtype=torch.float32, device=dev).to(dtype)
+            for _ in range(2))
+    fa = functools.partial(flash_attention_fwd, q, k, v, causal=causal,
                            window=window, return_lse=lse)
     got = fa()
-    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     err = _attn_error(got[0] if lse else got, ref,
-                      f"flash {dtype} S={s} window={window}")
+                      f"flash {dtype} S={s} Skv={skv} causal={causal} "
+                      f"window={window}")
     if lse:
-        want = flash_attention_lse_ref(q, k, causal=True, window=window)
+        want = flash_attention_lse_ref(q, k, causal=causal, window=window)
         err["lse_max_abs_err"] = float((got[1] - want).abs().max())
         err["lse_tol"] = LSE_TOL
         check(err["lse_max_abs_err"] <= LSE_TOL,
               f"flash lse {dtype} S={s}: {err['lse_max_abs_err']}")
-    lib, _ = _sdpa_call(q, k, v, window)
+    del ref
+    lib, _ = _sdpa_call(q, k, v, window, causal=causal)
     row = {"kernel": "flash_attention", "arch": arch,
            "shape_q": list(q.shape), "shape_kv": list(k.shape),
-           "window": window, "dtype": str(dtype)[6:], "lse": lse, **err,
+           "causal": causal, "window": window, "dtype": str(dtype)[6:],
+           "lse": lse, **err,
            "ms": time_ms(fa, 50),
            "plain_ms": time_ms(lambda: flash_attention_ref(
-               q, k, v, causal=True, window=window), 10 if b == 1 else 3),
+               q, k, v, causal=causal, window=window), 10 if b == 1 else 3),
            "library_ms": time_ms(lib, 50)}
     row["device_ms"] = device_ms(fa)
     row["library_device_ms"] = device_ms(lib)
-    row.update(flash_bound(s, hq, hkv, dh, dtype, window, b=b))
+    row.update(flash_bound(s, hq, hkv, dh, dtype, window, b=b, skv=skv,
+                           causal=causal))
     if lse:    # the lse written once: 4 bytes a row
         row.update(_bound(row["bytes"] + 4.0 * b * hq * s, row["ops"],
                           "tf32" if dtype == torch.float32 else dtype))
     return row
 
 
-def flash_bound(s, hq, hkv, dh, dtype, window=0, b=1) -> dict:
-    """Bound of a causal flash attention over S positions (batch b): 4 dh Hq
-    operations per visible (query, key) pair; q, k, v read and o written
-    once. fp32 runs on the kernel's route, three TF32 products per product
-    at the tensor cores' TF32 rate, with the bound of the same work on fp32
-    FMAs beside it (``bound_before_ms``, what earlier readings were held
-    against); bf16 at its tensor rate."""
+def flash_bound(s, hq, hkv, dh, dtype, window=0, b=1, skv=0,
+                causal=True) -> dict:
+    """Bound of a flash attention of S queries over ``skv`` keys (S by
+    default; batch b): 4 dh Hq operations per visible (query, key) pair
+    (:func:`flash_pairs`); q, k, v read and o written once. fp32 runs on
+    the kernel's route, three TF32 products per product at the tensor
+    cores' TF32 rate, with the bound of the same work on fp32 FMAs beside
+    it (``bound_before_ms``, what earlier readings were held against); bf16
+    at its tensor rate."""
+    skv = skv or s
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elt * 2 * b * s * dh * (hq + hkv)
-    ops = 4.0 * b * flash_pairs(s, window) * dh * hq
+    nbytes = elt * 2 * b * dh * (s * hq + skv * hkv)
+    ops = 4.0 * b * flash_pairs(s, window, skv, causal) * dh * hq
     if dtype != torch.float32:
         return _bound(nbytes, ops, dtype)
     return {**_bound(nbytes, 3.0 * ops, "tf32"), "useful_ops": ops,
             "bound_before_ms": _bound(nbytes, ops, dtype)["bound_ms"]}
 
 
-def flash_bwd_bound(b, s, hq, hkv, dh, dtype, window=0) -> dict:
+def flash_bwd_bound(b, s, hq, hkv, dh, dtype, window=0, skv=0,
+                    causal=True) -> dict:
     """Bound of the attention backward (the function, not the kernel's
     recompute): 10 dh Hq operations per visible (query, key) pair and batch
     row (S = Q K^T, dP = dO V^T, dV, dK, dQ), against q, k, v, o and dO read
     and dq, dk, dv written once. fp32 runs on the kernel's route, three
     TF32 products per product at the tensor cores' TF32 rate, with the
     bound of the same work on fp32 FMAs beside it (``bound_before_ms``,
-    what earlier readings were held against); bf16 at its tensor rate."""
+    what earlier readings were held against); bf16 at its tensor rate.
+    ``skv`` keys (S by default) and ``causal`` as :func:`flash_bound`."""
+    skv = skv or s
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elt * b * s * dh * 4 * (hq + hkv)
-    ops = 10.0 * b * flash_pairs(s, window) * dh * hq
+    nbytes = elt * b * dh * 4 * (s * hq + skv * hkv)
+    ops = 10.0 * b * flash_pairs(s, window, skv, causal) * dh * hq
     if dtype != torch.float32:
         return _bound(nbytes, ops, dtype)
     return {**_bound(nbytes, 3.0 * ops, "tf32"), "useful_ops": ops,
@@ -1005,28 +1330,35 @@ def _grad_error(got, ref, what: str) -> dict:
     return {"max_abs_err": float(diff.max()), "err_over_tol": ratio}
 
 
-def _flash_bwd_case(dev, b, s, hq, hkv, dh, dtype, rng, window=0, arch=None):
+def _flash_bwd_case(dev, b, s, hq, hkv, dh, dtype, rng, window=0, arch=None,
+                    skv=0, causal=True):
     """The backward kernels against the plain backward on the forward
     kernel's own output and lse: dq, dk and dv each within its limit, a
     repeat bit-identical; timed beside SDPA's backward of the same function
-    (its graph kept, the backward alone timed)."""
-    q, k, v, do = (torch.as_tensor(rng.standard_normal((b, s, h, dh)),
-                                   dtype=torch.float32, device=dev).to(dtype)
-                   for h in (hq, hkv, hkv, hq))
-    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window,
+    (its graph kept, the backward alone timed). ``skv`` keys (S by default)
+    and ``causal``: the cross-attention's training shape."""
+    skv = skv or s
+    q, do = (torch.as_tensor(rng.standard_normal((b, s, hq, dh)),
+                             dtype=torch.float32, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.as_tensor(rng.standard_normal((b, skv, hkv, dh)),
+                            dtype=torch.float32, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                  return_lse=True)
     fn = functools.partial(flash_attention_bwd, q, k, v, o, lse, do,
-                           causal=True, window=window)
+                           causal=causal, window=window)
     got = fn()
-    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                   window=window)
-    what = f"flash bwd {dtype} {b}x{s} {hq}/{hkv}x{dh} window={window}"
+    what = f"flash bwd {dtype} {b}x{s}x{skv} {hq}/{hkv}x{dh} " \
+        f"causal={causal} window={window}"
     errs = {name: _grad_error(g, r, f"{what} {name}")
             for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
     check(all(torch.equal(a, c) for a, c in zip(got, fn())),
           f"{what}: a repeat differs")
     del ref
-    lib, inputs = _sdpa_call(q, k, v, window, grad=True)
+    lib, inputs = _sdpa_call(q, k, v, window, grad=True, causal=causal)
     with torch.enable_grad():
         out = lib()
     dot = do.transpose(1, 2).contiguous()
@@ -1036,21 +1368,23 @@ def _flash_bwd_case(dev, b, s, hq, hkv, dh, dtype, rng, window=0, arch=None):
 
     row = {"kernel": "flash_attention_bwd", "arch": arch,
            "shape_q": list(q.shape), "shape_kv": list(k.shape),
-           "window": window, "dtype": str(dtype)[6:], "errors": errs,
+           "causal": causal, "window": window, "dtype": str(dtype)[6:],
+           "errors": errs,
            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
            "err_over_tol": max(e["err_over_tol"] for e in errs.values()),
            "tol": f"{BWD_REL_TOL} * max|ref|" + (
                " + 2**-7 * |ref|" if dtype == torch.bfloat16 else ""),
            "ms": time_ms(fn, 10),
            "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
-               q, k, v, o, lse, do, causal=True, window=window), 3),
+               q, k, v, o, lse, do, causal=causal, window=window), 3),
            "library_ms": time_ms(lib_bwd, 10)}
     row["device_ms"] = device_ms(fn, iters=5)
     row["device_ms_by_kernel"] = {
         name[:40]: us / 1e3 for name, us in per_call_us(
             _profile(lambda: [fn() for _ in range(5)]), 5).items()}
     row["library_device_ms"] = device_ms(lib_bwd, iters=5)
-    row.update(flash_bwd_bound(b, s, hq, hkv, dh, dtype, window))
+    row.update(flash_bwd_bound(b, s, hq, hkv, dh, dtype, window, skv=skv,
+                               causal=causal))
     del out, inputs
     return row
 
@@ -1390,16 +1724,8 @@ def _rglru_bwd_case(dev, case, b, s, c, slow, rng):
     return row
 
 
-def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
-    """Every kernel against its plain version at the main path's shapes
-    (``cfg`` the dense model, ``scfg`` the SSM model, ``hcfg`` the hybrid;
-    ``launches`` by arch, the claim phase's under None, the train run's
-    under "<arch> train"); returns the
-    ``{"kernels": [...]}`` record: one entry per kernel and model that
-    launches it, with that run's launches and the time and bound of the
-    shape it gives the kernel."""
-    dev = torch.device(device)
-    rng = np.random.default_rng(0)
+def _earlier_rows(dev, rng, cfg, scfg, hcfg) -> list:
+    """The rows of the dense, SSM and hybrid paths (``phase_kernels``)."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     rows = []
     for n in (100_000, 1 << 18):
@@ -1490,8 +1816,35 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
                             window=win, lse=True))
     rows.append(_flash_bwd_case(dev, 1, 1031, hhq, hhkv, hdh, torch.float32,
                                 rng, window=win))
-    for r in rows:
+    return rows
+
+
+def phase_kernels(cfg, scfg, hcfg, fams, device, launches: dict) -> dict:
+    """Every kernel against its plain version at the main path's shapes
+    (``cfg`` the dense model, ``scfg`` the SSM model, ``hcfg`` the hybrid,
+    ``fams`` the MoE, VLM and enc-dec models; ``launches`` by arch, the
+    claim phase's under None, the train run's under "<arch> train"); each
+    row printed, then the ``{"kernels": [...]}`` record
+    (:func:`kernels_line`)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    rows = _earlier_rows(dev, rng, cfg, scfg, hcfg)
+    extra = _family_rows(dev, rng, fams)
+    for r in rows + [r for r, _, _ in extra]:
         emit(r)
+    return kernels_line(cfg, scfg, hcfg, fams, rows, extra, launches)
+
+
+def kernels_line(cfg, scfg, hcfg, fams, rows, extra, launches) -> dict:
+    """The ``{"kernels": [...]}`` record of the kernel phase's ``rows`` (the
+    dense, SSM and hybrid paths') and ``extra`` (:func:`_family_rows`): one
+    entry per kernel, model and shape it gives the kernel there, with the
+    time and bound of that shape and its launches: the run's count of the
+    kernel, times the share of them that run at this shape where the run
+    gives it several (the shares of one kernel and run sum to 1)."""
+    train = f"{cfg.name} train"
+    s_train, h_train = f"{scfg.name} train", f"{hcfg.name} train"
+    one = fractions.Fraction(1)
     main_shape = [  # (kernel, arch, the row of the shape it sees there)
         ("wq_claim", None, lambda r: r["n"] == 100_000
          and r["workers"] == 936 and r["k"] == 1),
@@ -1516,12 +1869,34 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
         ("rglru_scan_bwd", h_train, lambda r: r["case"] == "train"),
         ("flash_attention", h_train, lambda r: r["arch"] == h_train),
         ("flash_attention_bwd", h_train, lambda r: r["arch"] == h_train)]
+    # the MoE, VLM and enc-dec train runs' queue is qwen2's (6 tasks, 2
+    # workers)
+    main_shape += [("wq_claim", f"{c.name} train",
+                    lambda r: r.get("arch") == train) for c in fams]
+    main_shape = [(k, a, next(r for r in rows if r["kernel"] == k
+                              and pick(r)), one)
+                  for k, a, pick in main_shape]
+    # the MoE, VLM and enc-dec rows, each the shape of its share of the
+    # (kernel, arch) it names
+    main_shape += [(r["kernel"], arch, r, share)
+                   for r, arch, share in extra if arch is not None]
+    total = {}
+    for name, arch, _, share in main_shape:
+        total[name, arch] = total.get((name, arch), 0) + share
+    check(all(t == 1 for t in total.values()),
+          f"launch shares do not sum to 1: {total}")
     out = []
-    for name, arch, pick in main_shape:
-        r = next(r for r in rows if r["kernel"] == name and pick(r))
+    for name, arch, r, share in main_shape:
+        n = launches[arch][name] * share
+        check(n.denominator == 1, f"{name} {arch}: {share} of "
+              f"{launches[arch][name]} launches")
         out.append({"name": name, "arch": arch, "route": "cuda",
                     "source": SRC[name], "replaces": REPLACES[name],
-                    "launches": launches[arch][name],
+                    "launches": int(n),
+                    **({"launches_share": str(share),
+                        "launches_of_kernel": launches[arch][name]}
+                       if share != 1 else {}),
+                    "shape": {k: r[k] for k in _SHAPE_KEYS if k in r},
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
@@ -1529,6 +1904,94 @@ def phase_kernels(cfg, scfg, hcfg, device, launches: dict) -> dict:
                     "device_ms": r["device_ms"],
                     "library_device_ms": r.get("library_device_ms")})
     return {"kernels": out}
+
+
+_SHAPE_KEYS = ("shape_q", "shape_kv", "shape_cache", "kv_len", "causal",
+               "window", "dtype", "lse", "case", "n", "workers", "k")
+# the enc-dec serve: 7 requests of cross_kv_len (4096) frames and one of
+# fewer, whose decode memory is zero-padded; a prompt of
+# prefill_input_specs' max(64, s // 8) tokens
+ENCDEC_SHORT_FRAMES = 2500
+ENCDEC_PROMPT = 64
+
+
+def encdec_serve_frames(cfg, requests: int = 8) -> list:
+    return [cfg.cross_kv_len] * (requests - 1) + [ENCDEC_SHORT_FRAMES]
+
+
+def family_shapes(fams) -> list:
+    """The attention kernels' shapes on the MoE, VLM and enc-dec paths, as
+    (kernel, arch whose run gives the kernel this shape or None, the share
+    of that run's launches of the kernel at it, the case's arguments).
+    Serve: prefill fp32 at S 1000 (granite's 24/8 heads of 64, qwen2-vl's
+    12/2 of 128) and their bf16 decode at kv_len 1000 (1000 to 1030 in the
+    run); seamless's prefill (a third of its flash launches each: per layer
+    the encoder, S 4096 or 2500 not causal, the decoder's self-attention
+    over the 64-token prompt, causal, and its cross-attention, those 64
+    queries over the frames) and decode (half its launches each: the
+    self-attention against the cache, kv_len 65 to 95, and the
+    cross-attention, one query over kv_len 4096). Train, bf16 forward with
+    LSE and backward: granite's microbatch 2 x 2048, qwen2-vl's 8 x 2048;
+    seamless's thirds at 8 x 2048 (encoder, not causal), 8 x 256 (decoder,
+    causal) and 256 x 2048 (cross, not causal)."""
+    gcfg, vcfg, ecfg = fams
+    f32, bf16 = torch.float32, torch.bfloat16
+    F = fractions.Fraction
+    out = []
+    for c in (gcfg, vcfg):
+        hd = dict(hq=c.num_heads, hkv=c.num_kv_heads, dh=c.resolved_head_dim)
+        out.append(("flash_attention", c.name, F(1),
+                    dict(hd, s=1000, dtype=f32, arch=c.name)))
+        out.append(("decode_attention", c.name, F(1),
+                    dict(hd, smax=4096, kv_len=1000, dtype=bf16,
+                         arch=c.name)))
+    hd = dict(hq=ecfg.num_heads, hkv=ecfg.num_kv_heads,
+              dh=ecfg.resolved_head_dim)
+    e, frames = ecfg.name, encdec_serve_frames(ecfg)
+    third = F(1, 3 * len(frames))        # one request's share of a third
+    for n in sorted(set(frames), reverse=True):
+        share = third * frames.count(n)
+        out.append(("flash_attention", e, share,
+                    dict(hd, s=n, dtype=f32, arch=e, causal=False)))
+        out.append(("flash_attention", e, share,
+                    dict(hd, s=ENCDEC_PROMPT, dtype=f32, arch=f"{e} cross",
+                         skv=n, causal=False)))
+    out.append(("flash_attention", e, F(1, 3),
+                dict(hd, s=ENCDEC_PROMPT, dtype=f32, arch=f"{e} decoder")))
+    out.append(("decode_attention", e, F(1, 2),
+                dict(hd, smax=4096, kv_len=ENCDEC_PROMPT + 16, dtype=bf16,
+                     arch=f"{e} decoder")))
+    out.append(("decode_attention", e, F(1, 2),
+                dict(hd, smax=ecfg.cross_kv_len, kv_len=ecfg.cross_kv_len,
+                     dtype=bf16, arch=f"{e} cross")))
+    for c, b, s, skv, causal, share, part in (
+            (gcfg, 2, 2048, 0, True, F(1), ""),
+            (vcfg, 8, 2048, 0, True, F(1), ""),
+            (ecfg, 8, 2048, 0, False, F(1, 3), ""),
+            (ecfg, 8, 256, 0, True, F(1, 3), " decoder"),
+            (ecfg, 8, 256, 2048, False, F(1, 3), " cross")):
+        kw = dict(hq=c.num_heads, hkv=c.num_kv_heads,
+                  dh=c.resolved_head_dim, b=b, s=s, dtype=bf16,
+                  arch=f"{c.name} train{part}", skv=skv, causal=causal)
+        out.append(("flash_attention", f"{c.name} train", share,
+                    dict(kw, lse=True)))
+        out.append(("flash_attention_bwd", f"{c.name} train", share, kw))
+    return out
+
+
+def _family_rows(dev, rng, fams) -> list:
+    """:func:`family_shapes`' cases run, each held against its plain
+    version with SDPA beside it, as (row, arch, share)."""
+    case = {"flash_attention": _flash_case,
+            "flash_attention_bwd": _flash_bwd_case,
+            "decode_attention": _decode_case}
+    return [(case[k](dev, rng=rng, **kw), arch, share)
+            for k, arch, share, kw in family_shapes(fams)]
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1541,6 +2004,9 @@ def main() -> int:
     smi = phase_device()
     cfg, scfg, hcfg = (get_config(a) for a in
                        ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b"))
+    gcfg, vcfg, ecfg = (get_config(a) for a in
+                        ("granite-moe-3b-a800m", "qwen2-vl-2b",
+                         "seamless-m4t-large-v2"))
     launches = {}
     for c in (cfg, scfg, hcfg):
         serve = phase_serve(c, dev)
@@ -1555,21 +2021,39 @@ def main() -> int:
             phase_serve_check(serve["executor"])
         phase_serve_profile(serve["executor"])
         del serve, res   # free one model before the next is built
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
     phase_hybrid_check(hcfg, dev)
+    # the MoE family through the store-driven executor; the VLM and enc-dec
+    # families through the model bundle (no executor serves them: they need
+    # more than a token prompt). Each checked on a 2-layer cut at full width
+    serve = phase_serve(gcfg, dev)
+    launches[gcfg.name] = serve["result"]["launches"]
+    phase_serve_profile(serve["executor"])
+    del serve
+    _free()
+    phase_family_check(gcfg, dev)
+    launches[vcfg.name] = phase_serve_bundle(vcfg, dev)["launches"]
+    _free()
+    phase_family_check(vcfg, dev)
+    launches[ecfg.name] = phase_serve_bundle(
+        ecfg, dev, prompt_len=ENCDEC_PROMPT,
+        frames=encdec_serve_frames(ecfg))["launches"]
+    _free()
+    phase_family_check(ecfg, dev, prompt_len=16, frames=1000)
     launches[None] = phase_claim(dev)["launches"]
     train = phase_train(cfg, dev)
     launches[f"{cfg.name} train"] = train["result"]["launches"]
     phase_train_profile(train["executor"])
     train["executor"].close()
     del train
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     phase_train_check(cfg, dev)
     # the SSM and hybrid families: mamba2-1.3b at full width and depth;
-    # recurrentgemma-9b at full width, its depth cut (the record says so)
+    # recurrentgemma-9b at full width, its depth cut (the record says so);
+    # the MoE, VLM and enc-dec families: qwen2-vl-2b and seamless at full
+    # width and depth, granite at full width, its depth cut
     hcut = dataclasses.replace(hcfg, num_layers=HYBRID_TRAIN_LAYERS)
+    gcut = dataclasses.replace(gcfg, num_layers=MOE_TRAIN_LAYERS)
     ng, nt = hybrid_counts(hcut)
     for c, kw, check_kw in (
             (scfg, {}, {"prefixes": ("layers.0.mixer.",)}),
@@ -1579,16 +2063,26 @@ def main() -> int:
                                f"{HYBRID_TRAIN_LAYERS} layers ({ng} groups + "
                                f"{nt} tail): the full depth's parameters "
                                f"with AdamW do not fit one card"},
-             {"layers": len(hcfg.rglru.pattern), "batch": 1, "step": False})):
+             {"layers": len(hcfg.rglru.pattern), "batch": 1, "step": False}),
+            (gcut, {"max_peak": MOE_TRAIN_MAX_PEAK_BYTES,
+                    "reduced": f"depth {gcfg.num_layers} -> "
+                               f"{MOE_TRAIN_LAYERS} layers: the full depth's "
+                               f"3.90 B stored parameters with AdamW peak "
+                               f"past {MOE_TRAIN_MAX_PEAK_BYTES / 1e9:.0f} "
+                               f"GB"},
+             {"prefixes": ("layers.0.attn.", "layers.0.moe."),
+              "batch": 4}),    # one row to each of its 4 microbatches
+            (vcfg, {}, {}),
+            (ecfg, {}, {"prefixes": ("encoder.0.", "decoder.0.")})):
         train = phase_train(c, dev, **kw)
         launches[f"{c.name} train"] = train["result"]["launches"]
         phase_train_profile(train["executor"])
         train["executor"].close()
         del train
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
         phase_train_check(c, dev, **check_kw)
-    kernels = phase_kernels(cfg, scfg, hcfg, dev, launches)
+    kernels = phase_kernels(cfg, scfg, hcfg, (gcfg, vcfg, ecfg), dev,
+                            launches)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit(kernels)

@@ -11,8 +11,7 @@ a flat-random stream has no learnable signal.
 
 A copy of the reference's ``repro/data/pipeline.py`` (numpy only, so the
 batches are bit-identical to the reference's); the executor moves them to
-its device. The VLM / enc-dec inputs (``embed_stub_batch``, the frames of
-``batch_for``) come with those families (ROADMAP Queue 1).
+its device.
 """
 from __future__ import annotations
 
@@ -45,13 +44,37 @@ def shard_batch(cfg: DataConfig, shard_id: int) -> Dict[str, np.ndarray]:
     return {"tokens": stream[:, :s], "labels": stream[:, 1:]}
 
 
+def embed_stub_batch(cfg: DataConfig, model_cfg: ModelConfig,
+                     shard_id: int) -> Dict[str, np.ndarray]:
+    """Precomputed frame/patch embeddings for the [audio]/[vlm] stub archs."""
+    rng = np.random.default_rng((cfg.seed << 32) ^ shard_id ^ 0xA5A5)
+    b, s = cfg.batch_size, cfg.seq_len
+    d = model_cfg.d_model
+    tok = shard_batch(cfg, shard_id)
+    out: Dict[str, np.ndarray] = {
+        "embeds": rng.standard_normal((b, s, d)).astype(np.float32) * 0.1,
+        "labels": tok["labels"],
+    }
+    if model_cfg.mrope:
+        pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None, None],
+                              (3, b, s)).copy()
+        out["mrope_positions"] = pos
+    return out
+
+
 def batch_for(model_cfg: ModelConfig, data_cfg: DataConfig,
               shard_id: int) -> Dict[str, np.ndarray]:
-    if model_cfg.family == "encdec" or model_cfg.embed_stub:
-        raise NotImplementedError(
-            f"{model_cfg.name}: the {model_cfg.family!r} family's inputs are "
-            f"not ported yet: ROADMAP Queue 1, the MoE / VLM / enc-dec "
-            f"families")
+    if model_cfg.family == "encdec":
+        rng = np.random.default_rng((data_cfg.seed << 32) ^ shard_id ^ 0xE5)
+        b, s = data_cfg.batch_size, data_cfg.seq_len
+        tok = shard_batch(dataclasses.replace(data_cfg,
+                                              seq_len=max(8, s // 8)),
+                          shard_id)
+        return {"frames": rng.standard_normal(
+                    (b, s, model_cfg.d_model)).astype(np.float32) * 0.1,
+                "tokens": tok["tokens"], "labels": tok["labels"]}
+    if model_cfg.embed_stub:
+        return embed_stub_batch(data_cfg, model_cfg, shard_id)
     return shard_batch(data_cfg, shard_id)
 
 

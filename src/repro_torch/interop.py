@@ -8,15 +8,19 @@ dense: ``layers/ln1/scale``, ``layers/attn/q/w``, ``layers/attn/q/b``,
 ``layers/mixer/conv_w``, ``layers/mixer/A_log``, ...; hybrid:
 ``groups/pos0/mixer/in/w``, ``groups/pos0/mixer/wa/w``,
 ``groups/pos0/mixer/lam``, ``groups/pos2/attn/q/w``, ..., stacked over the
-groups, and ``tail/mixer/...`` stacked over the tail layers).
-:func:`params_from_jax` takes that tree, nested or flat, as numpy arrays
-and returns a state dict of the port's
-:class:`~repro_torch.models.transformer.DecoderLM`: the stacked axis of
-``layers``, ``groups`` and ``tail`` is unstacked (``layers.{i}``,
-``groups.{g}.pos{i}``, ``tail.{j}``) and the dense ``[in, out]`` weights
-(the 2-D ``w`` leaves) are transposed to ``nn.Linear``'s ``[out, in]``;
-every other leaf is copied as it is: the block-diagonal gates' ``w``
-``[nb, c, c]``, the convs' ``[W, C]`` ``conv_w``, ``lam``. Nothing here
+groups, and ``tail/mixer/...`` stacked over the tail layers; MoE:
+``layers/moe/router`` ``[L, d, E]``, ``layers/moe/up`` ``[L, E_pad, d, f]``,
+...; enc-dec: ``encoder/...`` and ``decoder/...`` stacked over their layers,
+``head/table``, ``enc_norm/...``). :func:`params_from_jax` takes that tree,
+nested or flat, as numpy arrays and returns a state dict of the port's
+:class:`~repro_torch.models.transformer.DecoderLM` or
+:class:`~repro_torch.models.encdec.EncDecLM`: the stacked axis of
+``layers``, ``groups``, ``tail``, ``encoder`` and ``decoder`` is unstacked
+(``layers.{i}``, ``groups.{g}.pos{i}``, ``tail.{j}``, ``encoder.{i}``,
+``decoder.{i}``) and the dense ``[in, out]`` weights (the 2-D ``w`` leaves)
+are transposed to ``nn.Linear``'s ``[out, in]``; every other leaf is copied
+as it is: the block-diagonal gates' ``w`` ``[nb, c, c]``, the convs' ``[W,
+C]`` ``conv_w``, ``lam``, the MoE router and expert slabs. Nothing here
 imports JAX.
 """
 from __future__ import annotations
@@ -26,6 +30,8 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.models.layers import Norm
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -49,7 +55,8 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-_STACKED = ("layers", "groups", "tail")   # leaves with a leading layer axis
+# leaves with a leading layer axis
+_STACKED = ("layers", "groups", "tail", "encoder", "decoder")
 
 
 def _leaf_name(parts) -> str:
@@ -87,18 +94,21 @@ def load_jax_params(model: nn.Module, tree_or_flat: Mapping[str, Any]
     return model
 
 
-def jax_key(name: str, tensor: torch.Tensor) -> Tuple[str, bool]:
+def jax_key(name: str, tensor: torch.Tensor,
+            norm: bool = False) -> Tuple[str, bool]:
     """The reference's ``/``-joined key of the leaf that the port's
     parameter ``name`` is (one layer of, for a stacked leaf), and whether
     the port keeps it transposed (the 2-D ``w`` of a stacked leaf); the
-    inverse of :func:`params_from_jax`'s naming."""
+    inverse of :func:`params_from_jax`'s naming. ``norm``: the parameter
+    is a norm's (its ``bias`` keeps its name; a dense layer's is ``b``)."""
     parts = name.split(".")
+    bias = "bias" if norm else "b"
     if parts[0] in _STACKED:
         rest = parts[2:]
-        leaf = {"weight": "w", "bias": "b"}.get(rest[-1], rest[-1])
+        leaf = {"weight": "w", "bias": bias}.get(rest[-1], rest[-1])
         return "/".join([parts[0], *rest[:-1], leaf]), \
             leaf == "w" and tensor.dim() == 2
-    leaf = {"weight": "table", "bias": "b"}.get(parts[-1], parts[-1])
+    leaf = {"weight": "table", "bias": bias}.get(parts[-1], parts[-1])
     return "/".join([*parts[:-1], leaf]), False
 
 
@@ -114,9 +124,11 @@ def reference_leaves(params: nn.Module
     order (one entry for a leaf that is not stacked). A statistic that the
     reference takes over a whole leaf (Adafactor's factored moments, its
     update's RMS, int8 compression's scale) is taken over the group."""
+    norms = {f"{mn}.bias" for mn, m in params.named_modules()
+             if isinstance(m, Norm)}
     groups: Dict[str, List[Tuple[str, bool]]] = {}
     for name, p in params.named_parameters():
-        key, transposed = jax_key(name, p)
+        key, transposed = jax_key(name, p, name in norms)
         groups.setdefault(key, []).append((name, transposed))
     return groups
 

@@ -10,10 +10,15 @@
       --arch recurrentgemma-9b --requests 8
 
 ``--device`` defaults to ``cuda``: the model's kernels (attention for the
-dense family, the SSD scan for mamba2, the RG-LRU scan and attention for
-recurrentgemma) then run as hand-written CUDA kernels, and the command
-fails when no card is present. recurrentgemma-9b at full width needs about
-52 GB of device memory (fp32 master params and their bf16 decode copy).
+dense and MoE families, the SSD scan for mamba2, the RG-LRU scan and
+attention for recurrentgemma) then run as hand-written CUDA kernels, and
+the command fails when no card is present. recurrentgemma-9b at full width
+needs about 52 GB of device memory (fp32 master params and their bf16
+decode copy), granite-moe-3b-a800m about 23 GB. The executor prefills a
+token prompt, as the reference's does, so the VLM (qwen2-vl-2b) and enc-dec
+(seamless-m4t-large-v2) archs fail here as they fail there (a KeyError for
+their patch embeddings or frames); their model bundles serve them
+(``build_model(cfg).prefill`` / ``decode_step``).
 """
 from __future__ import annotations
 

@@ -123,24 +123,26 @@ def loss_and_grads(cfg: ModelConfig, params: nn.Module,
 
 def _micro(batch: Dict[str, torch.Tensor], mb: int, i: int):
     """Microbatch ``i`` of ``mb``: rows [i B/mb, (i + 1) B/mb) of every
-    input (the reference's ``[B] -> [mb, B/mb]`` reshape)."""
+    input (the reference's ``_split_micro``: ``[B] -> [mb, B/mb]``; the
+    M-RoPE positions ``[3,B,S]`` carry the batch at dim 1)."""
     out = {}
     for k, x in batch.items():
-        if x.shape[0] % mb:
+        dim = 1 if k == "mrope_positions" else 0
+        if x.shape[dim] % mb:
             raise ValueError(f"batch {k} {tuple(x.shape)} does not split "
                              f"into {mb} microbatches")
-        n = x.shape[0] // mb
-        out[k] = x[i * n:(i + 1) * n]
+        n = x.shape[dim] // mb
+        out[k] = x.narrow(dim, i * n, n)
     return out
 
 
 def make_train_step(cfg: ModelConfig, grad_compression: bool = False):
     """(state, batch, knobs) -> (state, metrics).
 
-    state = {"params": the master module, "opt", "err"?}; batch = {"tokens",
-    "labels"} [B,S] on the params' device; knobs = {"lr": float}. The
-    families not ported (MoE, VLM, enc-dec) raise here."""
-    build_model(cfg)              # raises for the families not ported
+    state = {"params": the master module, "opt", "err"?}; batch = the
+    family's inputs (``data.pipeline.batch_for``: tokens or embeds and
+    mrope_positions, or frames and tokens; labels) on the params' device;
+    knobs = {"lr": float}."""
 
     def step(state, batch, knobs):
         params = state["params"]

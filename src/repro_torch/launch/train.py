@@ -10,10 +10,12 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
       --steps 4 --seq-len 2048 --batch 8
 
-``--device`` defaults to ``cuda``: attention (dense, hybrid), the SSD scan
-(SSM) and the RG-LRU scan (hybrid) then run forward and backward in the
-hand-written kernels, and the command fails when no card is present.
-Microbatches follow ``cfg.microbatches`` (4 for recurrentgemma-9b).
+``--device`` defaults to ``cuda``: attention (every family but SSM), the
+SSD scan (SSM) and the RG-LRU scan (hybrid) then run forward and backward
+in the hand-written kernels, and the command fails when no card is present.
+Microbatches follow ``cfg.microbatches`` (4 for recurrentgemma-9b and
+granite-moe-3b-a800m). The VLM and enc-dec archs train on the data
+pipeline's patch embeddings and M-RoPE ids, or frames and tokens.
 """
 from __future__ import annotations
 

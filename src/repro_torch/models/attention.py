@@ -1,17 +1,21 @@
-"""GQA attention with a KV cache: causal / sliding-window, with the
-no-cache, linear-cache and ring-buffer branches of the reference.
+"""GQA attention with a KV cache: causal / sliding-window / cross
+variants, with the no-cache, linear-cache and ring-buffer branches of the
+reference, and M-RoPE (the VLM family's 3-stream positions).
 
 The compute core (:func:`_sdpa`) chooses by the tensors' device. A CUDA
-tensor always goes to a hand-written kernel: a 1-token query against the
-cache to the decode kernel (with the window, if any), a prefill or a
-training pass from position 0 with no cache tail (of any length, one token
-included) to the flash kernel (with grad on, through the autograd function
-whose backward is the flash backward kernel), and any other shape raises.
-A CPU tensor goes to :func:`sdpa_ref`, which plain autograd
-differentiates. The ring-buffer branch (sliding-window decode against a
-cache of exactly ``window`` slots) goes to the decode kernel's dispatcher on
-both devices (see :func:`attention`). ``cfg.attn_impl`` does not select the
-attention path in this port.
+tensor always goes to a hand-written kernel: a 1-token query to the decode
+kernel (against the cache, with the window, if any; or, with no cache tail,
+against all of its keys: enc-dec's cross-attention at decode, as the
+reference's Pallas dispatcher sends it), a prefill or a training pass from
+position 0 with no cache tail (causal or not, its keys as many as its
+queries or not) to the flash kernel (with grad on, through the autograd
+function whose backward is the flash backward kernel; a 1-token query that
+needs a gradient goes there too), and any other shape raises. A CPU tensor
+goes to :func:`sdpa_ref`, which plain autograd differentiates. The
+ring-buffer branch (sliding-window decode against a cache of exactly
+``window`` slots) goes to the decode kernel's dispatcher on both devices
+(see :func:`attention`). ``cfg.attn_impl`` does not select the attention
+path in this port.
 """
 from __future__ import annotations
 
@@ -83,11 +87,22 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None):
     if q.device.type == "cuda":
         if q.shape[1] == 1 and kv_len is not None:                  # decode
             return kops.decode_attention(q, k, v, kv_len=kv_len,
                                          window=window)
+        if q.shape[1] == 1 and not _needs_grad(q, k, v):
+            # one query against every key (the reference sends it to its
+            # decode kernel with kv_len=None): the keys' count as the
+            # kernel's kv_len, filled on the card (no host sync)
+            n = torch.full((1,), k.shape[1], dtype=torch.int32,
+                           device=q.device)
+            return kops.decode_attention(q, k, v, kv_len=n, window=window)
         if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
             return kops.flash_attention(q, k, v, causal=causal, window=window)
         raise NotImplementedError(
@@ -113,6 +128,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
               window: int = 0,
               cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_idx: Optional[torch.Tensor] = None,
+              mrope_positions: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention over x: [B,S,D].
 
@@ -123,13 +139,20 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     into the cache tensors IN PLACE (the reference returns updated copies),
     and the same tensors are returned. With a window and a cache of exactly
     ``window`` slots, the cache is a ring: slot s holds the newest position
-    p with p % window == s, and x is one token.
+    p with p % window == s, and x is one token. ``mrope_positions`` [3,B,S]
+    (the t/h/w streams) replaces RoPE by M-RoPE, its rotary half split as
+    the reference splits it.
     """
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    q = _split_heads(p.q(x), hq)
-    k = _split_heads(p.k(x), hkv)
-    v = _split_heads(p.v(x), hkv)
-    if cfg.rope_theta > 0:
+    q = _split_heads(L.dense(p.q, x), hq)
+    k = _split_heads(L.dense(p.k, x), hkv)
+    v = _split_heads(L.dense(p.v, x), hkv)
+    if mrope_positions is not None:
+        dh = q.shape[-1]
+        sec = (dh // 2 - 2 * (dh // 6), dh // 6, dh // 6)
+        q = L.apply_mrope(q, mrope_positions, cfg.rope_theta, sec)
+        k = L.apply_mrope(k, mrope_positions, cfg.rope_theta, sec)
+    elif cfg.rope_theta > 0:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -159,3 +182,24 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     q_offset=cache_idx, kv_len=kv_len)
         new_kv = (ck, cv)
     return p.o(_merge_heads(out)), new_kv
+
+
+def cross_attention(p: Attention, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                    cfg: ModelConfig, kv_len=None) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (no positions,
+    not causal): the flash kernel at prefill and in training (its queries
+    fewer than its keys), the decode kernel at a 1-token decode step, which
+    passes ``kv_len``, the keys' count as a one-element int32 tensor made
+    once with the cache (every key is attended)."""
+    q = _split_heads(L.dense(p.q, x), cfg.num_heads)
+    k, v = enc_kv
+    out = _sdpa(q, k, v, causal=False, kv_len=kv_len)
+    return p.o(_merge_heads(out))
+
+
+def encode_cross_kv(p: Attention, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    k = _split_heads(L.dense(p.k, enc_out), cfg.num_kv_heads)
+    v = _split_heads(L.dense(p.v, enc_out), cfg.num_kv_heads)
+    return k, v

@@ -5,12 +5,12 @@ PyTorch counterparts of ``repro/models/layers.py``. Parameters live in
 initialises them (same distributions as the reference: dense weights
 N(0, 1/in), zero biases, unit norm scales, embeddings N(0, 0.02^2)).
 ``nn.Linear`` keeps its weight as ``[out, in]``; the reference's ``w`` is
-``[in, out]`` (``interop`` transposes). M-RoPE comes with the VLM slice.
+``[in, out]`` (``interop`` transposes).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +30,17 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
         if bias:
             lin.bias.zero_()
     return lin
+
+
+def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)`` with JAX's promotion: an input narrower than the weight
+    (the bf16 patch embeddings or frames against fp32 master params, as the
+    reference's prefill meets them) is widened to the weight's dtype first,
+    where ``nn.Linear`` would refuse the mix."""
+    if x.dtype != lin.weight.dtype and \
+            torch.promote_types(x.dtype, lin.weight.dtype) == lin.weight.dtype:
+        x = x.to(lin.weight.dtype)
+    return lin(x)
 
 
 class Norm(nn.Module):
@@ -115,6 +126,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(dh, theta, x.device)                    # [Dh/2]
     angles = positions[..., None].float() * freqs             # [..., S, Dh/2]
     angles = angles[..., None, :]                              # [..., S, 1, Dh/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    xf1, xf2 = x[..., : dh // 2].float(), x[..., dh // 2:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int] = (16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: [B, S, H, Dh]; positions_3d: [3, B, S] (t/h/w position ids). The
+    rotary half-dim is split into ``sections`` (t,h,w); each section rotates
+    with its own position stream. sections must sum to Dh/2.
+    """
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"mrope sections {sections} must sum to {dh // 2}")
+    freqs = rope_freqs(dh, theta, x.device)                    # [Dh/2]
+    # per frequency slot, the position stream that drives it: sections[i]
+    # slots of stream i, in order (no index tensor, so no host copy)
+    pf = positions_3d.float()
+    pos = torch.cat([pf[i:i + 1].expand(n, *pf.shape[1:])
+                     for i, n in enumerate(sections)])         # [Dh/2,B,S]
+    angles = torch.movedim(pos, 0, -1) * freqs                 # [B,S,Dh/2]
+    angles = angles[..., None, :]                              # [B,S,1,Dh/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
     xf1, xf2 = x[..., : dh // 2].float(), x[..., dh // 2:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)

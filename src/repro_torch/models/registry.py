@@ -1,9 +1,9 @@
 """Model registry: uniform build API per config.
 
 ``build_model(cfg)`` returns a ``Model`` bundle of functions, as the
-reference's registry does; the executor invokes them per task. The dense,
-SSM and hybrid families are ported for serving and training; the others
-raise, naming the ROADMAP item that brings them.
+reference's registry does; the executor invokes them per task. Every
+family is ported: the decoder-only ones (dense, MoE, VLM, SSM, hybrid) in
+``models/transformer.py``, enc-dec in ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -11,15 +11,9 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import (FAMILY_ENCDEC, FAMILY_MOE,
-                                      FAMILY_VLM, ModelConfig)
+from repro_torch.configs.base import FAMILY_ENCDEC, ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
-
-_WAITING = {
-    FAMILY_MOE: "ROADMAP Queue 1, the MoE / VLM / enc-dec families",
-    FAMILY_VLM: "ROADMAP Queue 1, the MoE / VLM / enc-dec families",
-    FAMILY_ENCDEC: "ROADMAP Queue 1, the MoE / VLM / enc-dec families",
-}
 
 
 class Model(NamedTuple):
@@ -28,17 +22,16 @@ class Model(NamedTuple):
     prefill: Callable[[Any, Dict[str, Any], int], Tuple[torch.Tensor, Any]]
     decode_step: Callable[[Any, torch.Tensor, Any], Tuple[torch.Tensor, Any]]
     train_loss: Callable[[Any, Dict[str, Any]], Tuple[torch.Tensor, Any]]
+    init_cache: Callable[[int, int, Any], Any]
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in T.PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_WAITING.get(cfg.family, 'not planned')}")
+    mod = ED if cfg.family == FAMILY_ENCDEC else T
     return Model(
         cfg=cfg,
-        init=lambda gen: T.init_params(cfg, gen),
-        prefill=lambda p, b, m: T.prefill(cfg, p, b, m),
-        decode_step=lambda p, t, c: T.decode_step(cfg, p, t, c),
-        train_loss=lambda p, b: T.train_loss(cfg, p, b),
+        init=lambda gen: mod.init_params(cfg, gen),
+        prefill=lambda p, b, m: mod.prefill(cfg, p, b, m),
+        decode_step=lambda p, t, c: mod.decode_step(cfg, p, t, c),
+        train_loss=lambda p, b: mod.train_loss(cfg, p, b),
+        init_cache=lambda b, m, device: mod.init_cache(cfg, b, m, device),
     )

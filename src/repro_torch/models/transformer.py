@@ -1,13 +1,12 @@
-"""Decoder-only LM for the dense, SSM and hybrid families: init, prefill
-with cache build, and one decode step.
+"""Decoder-only LM for the dense, MoE, VLM, SSM and hybrid families: init,
+prefill with cache build, one decode step, and the train loss.
 
-PyTorch counterpart of the dense, SSM and hybrid paths of
-``repro/models/transformer.py``. The reference stacks per-layer leaves on a
-leading [L] axis and runs ``lax.scan`` over them; here the layers are an
-``nn.ModuleList`` and the scan is a loop. The caches keep the reference's
-layouts on the model's device, each with an int32 scalar ``idx``, and
-decode writes them in place:
-  - dense: the KV cache ``[L,B,Smax,Hkv,Dh]``;
+PyTorch counterpart of ``repro/models/transformer.py``. The reference
+stacks per-layer leaves on a leading [L] axis and runs ``lax.scan`` over
+them; here the layers are an ``nn.ModuleList`` and the scan is a loop.
+The caches keep the reference's layouts on the model's device, each with
+an int32 scalar ``idx``, and decode writes them in place:
+  - dense, MoE and VLM: the KV cache ``[L,B,Smax,Hkv,Dh]``;
   - SSM: ``{"conv": [L,B,W-1,Cin], "ssm": [L,B,H,P,N]}``;
   - hybrid (recurrentgemma: ``ng`` groups of the (rec, rec, attn) pattern,
     then ``nt`` tail rec layers): ``{"groups": {"pos{i}": ...}, "tail":
@@ -25,14 +24,23 @@ branch to fp32, so the layer scan's carry changes dtype: a ``TypeError``).
 Its dense prefill casts its K/V to ``cfg.dtype`` the same way. In fp32 the
 two agree exactly.
 
-Training (:func:`train_loss`) is ported for all three families: the layer
+The MoE family's attention blocks hold an expert FFN (``models/moe.py``)
+whose load-balancing aux loss each block returns; the stacks sum it over
+the layers and :func:`train_loss` adds ``aux_loss_weight`` times the sum.
+The VLM family reads precomputed patch embeddings (``batch["embeds"]``,
+rounded to ``cfg.dtype`` as the reference casts them, then widened to the
+params' dtype where they are wider, as JAX promotes) and rotates by M-RoPE
+over ``batch["mrope_positions"]`` [3,B,S]; decode broadcasts its position
+to the three streams.
+
+Training (:func:`train_loss`) is ported for all five families: the layer
 loop with one ``torch.utils.checkpoint`` per scan body when ``cfg.remat``
-(the reference's ``jax.checkpoint`` of its scan body: a dense or SSM layer,
-a hybrid group of (rec, rec, attn), a hybrid tail layer) and the
+(the reference's ``jax.checkpoint`` of its scan body: a dense, MoE, VLM or
+SSM layer, a hybrid group of (rec, rec, attn), a hybrid tail layer) and the
 sequence-chunked cross-entropy (:func:`chunked_xent`). On the card the
 scans and the attention differentiate through their backward kernels
-(``kernels.ops``' autograd Functions). The MoE, VLM and enc-dec families
-come with later slices.
+(``kernels.ops``' autograd Functions). The enc-dec family is
+``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -43,10 +51,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (FAMILY_DENSE, FAMILY_HYBRID, FAMILY_SSM,
-                                      ModelConfig)
+from repro_torch.configs.base import (FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE,
+                                      FAMILY_SSM, FAMILY_VLM, ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
@@ -60,10 +69,13 @@ class AttnBlock(nn.Module):
         super().__init__()
         self.ln1 = L.Norm(cfg.d_model, cfg.norm, dtype, gen.device)
         self.attn = A.Attention(gen, cfg, dtype)
-        if cfg.d_ff:
+        if cfg.d_ff or cfg.moe:
             self.ln2 = L.Norm(cfg.d_model, cfg.norm, dtype, gen.device)
-            self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, cfg.glu, cfg.act,
-                             dtype)
+            if cfg.family == FAMILY_MOE:
+                self.moe = M.MoE(gen, cfg, dtype)
+            else:
+                self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, cfg.glu,
+                                 cfg.act, dtype)
 
 
 class SSMBlock(nn.Module):
@@ -82,9 +94,10 @@ class RecBlock(nn.Module):
         self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, cfg.glu, cfg.act, dtype)
 
 
-_BLOCKS = {FAMILY_DENSE: AttnBlock, FAMILY_SSM: SSMBlock}
+_BLOCKS = {FAMILY_DENSE: AttnBlock, FAMILY_MOE: AttnBlock,
+           FAMILY_VLM: AttnBlock, FAMILY_SSM: SSMBlock}
 _KINDS = {"rec": RecBlock, "attn": AttnBlock}
-PORTED = (FAMILY_DENSE, FAMILY_SSM, FAMILY_HYBRID)
+PORTED = (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM, FAMILY_SSM, FAMILY_HYBRID)
 
 
 def hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
@@ -94,8 +107,8 @@ def hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 class DecoderLM(nn.Module):
-    """Parameters of the dense, SSM or hybrid decoder (the reference's param
-    pytree)."""
+    """Parameters of the decoder of any family but enc-dec (the reference's
+    param pytree)."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
@@ -136,16 +149,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> DecoderLM:
 # blocks (prefill: cache=None; decode: cache per layer)
 # ---------------------------------------------------------------------------
 def _attn_block(p: AttnBlock, x, cfg: ModelConfig, *, positions, window=0,
-                cache=None, idx=None):
+                cache=None, idx=None, mrope=None):
+    """(x, new K/V, the MoE aux loss: the number 0 without experts, so that
+    a decode step launches nothing for it)."""
     h = p.ln1(x)
     out, new_kv = A.attention(p.attn, h, cfg, positions=positions,
                               causal=True, window=window, cache_kv=cache,
-                              cache_idx=idx)
+                              cache_idx=idx, mrope_positions=mrope)
     x = x + out
-    if cfg.d_ff:
-        h = p.ln2(x)
-        x = x + p.mlp(h)
-    return x, new_kv
+    aux = 0.0
+    if hasattr(p, "moe"):
+        out, aux = M.moe_ffn(p.moe, p.ln2(x), cfg)
+        x = x + out
+    elif hasattr(p, "mlp"):
+        x = x + p.mlp(p.ln2(x))
+    return x, new_kv, aux
 
 
 def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None):
@@ -171,8 +189,9 @@ def _hybrid_layers(cfg: ModelConfig, params: DecoderLM, caches):
 
 
 def _run_stack(cfg: ModelConfig, params: DecoderLM, x, *, positions,
-               caches=None, idx=None):
-    """Returns (x, caches). With caches, each layer's slice
+               caches=None, idx=None, mrope=None):
+    """Returns (x, caches); decode only, so the MoE aux loss, which the
+    reference's decode drops, is not summed. With caches, each layer's slice
     ``caches[...][i]`` (K/V, the SSM conv and ssm states, or the RG-LRU conv
     and lru states) is updated in place."""
     if cfg.family == FAMILY_SSM:      # decode only: prefill has its own loop
@@ -190,14 +209,14 @@ def _run_stack(cfg: ModelConfig, params: DecoderLM, x, *, positions,
                 for name, t in st.items():
                     c[name][i].copy_(t)
             else:
-                x, _ = _attn_block(lp, x, cfg, positions=positions,
-                                   window=cfg.rglru.window,
-                                   cache=(c["k"][i], c["v"][i]), idx=idx)
+                x, _, _ = _attn_block(lp, x, cfg, positions=positions,
+                                      window=cfg.rglru.window,
+                                      cache=(c["k"][i], c["v"][i]), idx=idx)
         return x, caches
     for i, lp in enumerate(params.layers):
         cache = None if caches is None else (caches["k"][i], caches["v"][i])
-        x, _ = _attn_block(lp, x, cfg, positions=positions, cache=cache,
-                           idx=idx)
+        x, _, _ = _attn_block(lp, x, cfg, positions=positions, cache=cache,
+                              idx=idx, mrope=mrope)
     return x, caches
 
 
@@ -208,8 +227,14 @@ def _head_table(cfg: ModelConfig, params: DecoderLM) -> nn.Embedding:
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
-def _train_attn(cfg: ModelConfig, positions, window, lp: AttnBlock, x):
-    return _attn_block(lp, x, cfg, positions=positions, window=window)[0]
+def _train_attn(cfg: ModelConfig, positions, window, mrope, lp: AttnBlock,
+                x, aux):
+    """One attention layer of the train stack: x and the running aux loss
+    in, both out, so that the aux loss leaves a layer's checkpoint as its
+    output does."""
+    x, _, a = _attn_block(lp, x, cfg, positions=positions, window=window,
+                          mrope=mrope)
+    return x, aux + a
 
 
 def _train_ssm(cfg: ModelConfig, lp: SSMBlock, x):
@@ -226,32 +251,45 @@ def _train_group(cfg: ModelConfig, positions, group: nn.ModuleDict, x):
     for i, kind in enumerate(cfg.rglru.pattern):
         lp = group[f"pos{i}"]
         x = _train_rec(cfg, lp, x) if kind == "rec" else \
-            _train_attn(cfg, positions, cfg.rglru.window, lp, x)
+            _train_attn(cfg, positions, cfg.rglru.window, None, lp, x, 0.0)[0]
     return x
 
 
-def _train_bodies(cfg: ModelConfig, params: DecoderLM, positions):
-    """The reference's scan bodies in order, as functions of x: a layer
-    (dense, SSM), or a hybrid group, then each hybrid tail layer."""
+def _with_aux(fn):
+    """A body of x alone as a body of (x, aux) that passes aux through."""
+    return lambda x, aux: (fn(x), aux)
+
+
+def _train_bodies(cfg: ModelConfig, params: DecoderLM, positions, mrope):
+    """The reference's scan bodies in order, as functions of (x, aux): a
+    layer (dense, MoE, VLM, SSM), or a hybrid group, then each hybrid tail
+    layer."""
     P = functools.partial
     if cfg.family == FAMILY_HYBRID:
-        return [P(_train_group, cfg, positions, g) for g in params.groups] \
-            + [P(_train_rec, cfg, lp) for lp in getattr(params, "tail", ())]
+        return [_with_aux(P(_train_group, cfg, positions, g))
+                for g in params.groups] \
+            + [_with_aux(P(_train_rec, cfg, lp))
+               for lp in getattr(params, "tail", ())]
     if cfg.family == FAMILY_SSM:
-        return [P(_train_ssm, cfg, lp) for lp in params.layers]
-    return [P(_train_attn, cfg, positions, 0, lp) for lp in params.layers]
+        return [_with_aux(P(_train_ssm, cfg, lp)) for lp in params.layers]
+    return [P(_train_attn, cfg, positions, 0, mrope, lp)
+            for lp in params.layers]
 
 
-def _run_stack_train(cfg: ModelConfig, params: DecoderLM, x, *, positions):
+def _run_stack_train(cfg: ModelConfig, params: DecoderLM, x, *, positions,
+                     mrope=None):
     """The scan bodies without caches, each under ``torch.utils.checkpoint``
     when ``cfg.remat`` (its activations are recomputed in the backward, as
     ``_maybe_ckpt`` has XLA do). The recompute reads the body's params from
     the module again, so the backward must run while any parameter
-    replacement (``functional_call``) is still in place."""
-    for fn in _train_bodies(cfg, params, positions):
-        x = checkpoint(fn, x, use_reentrant=False,
-                       preserve_rng_state=False) if cfg.remat else fn(x)
-    return x
+    replacement (``functional_call``) is still in place. Returns (x, the
+    aux loss summed over the layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for fn in _train_bodies(cfg, params, positions, mrope):
+        x, aux = checkpoint(fn, x, aux, use_reentrant=False,
+                            preserve_rng_state=False) if cfg.remat \
+            else fn(x, aux)
+    return x, aux
 
 
 def _xent_chunk(xi: torch.Tensor, table: torch.Tensor, li: torch.Tensor):
@@ -282,21 +320,38 @@ def chunked_xent(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
     return tot / (b * s)
 
 
+def _embed_inputs(cfg: ModelConfig, params: DecoderLM,
+                  batch: Dict[str, Any]) -> torch.Tensor:
+    """The token embeddings, or the precomputed patch embeddings of an
+    ``embed_stub`` config rounded to ``cfg.dtype`` (the reference's cast).
+    The layers widen them where the params are wider (``L.dense``)."""
+    if cfg.embed_stub:
+        return batch["embeds"].to(_dtype(cfg))
+    return params.embed(batch["tokens"])
+
+
+def _mrope(cfg: ModelConfig, batch: Dict[str, Any]):
+    return batch.get("mrope_positions") if cfg.mrope else None
+
+
 def train_loss(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(mean next-token loss, {"loss", "aux_loss"}) of ``batch`` (tokens and
-    labels [B,S]) in the params' dtype. The tied table's gradient sums its
-    use as the embedding and as the head."""
-    x = params.embed(batch["tokens"])
+    """(mean next-token loss, {"loss", "aux_loss"}) of ``batch`` (tokens, or
+    embeds [B,S,D] and mrope_positions [3,B,S], and labels [B,S]) in the
+    params' dtype; an MoE config adds ``aux_loss_weight`` times the aux loss
+    summed over its layers. The tied table's gradient sums its use as the
+    embedding and as the head."""
+    x = _embed_inputs(cfg, params, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    x = _run_stack_train(cfg, params, x, positions=positions)
+    x, aux = _run_stack_train(cfg, params, x, positions=positions,
+                              mrope=_mrope(cfg, batch))
     x = params.final_norm(x)
     loss = chunked_xent(cfg, x, _head_table(cfg, params).weight,
                         batch["labels"])
-    return loss, {"loss": loss,
-                  "aux_loss": torch.zeros((), dtype=torch.float32,
-                                          device=x.device)}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss, {"loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -335,18 +390,21 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any],
     params, as the reference does). The KV cache is ``cfg.dtype``; the SSM
     states are those the prefill computed (conv in the params' dtype, ssm in
     fp32), as the reference returns them; the hybrid's states are cast to
-    the dtypes of :func:`init_cache` (see the module's note)."""
-    x = params.embed(batch["tokens"])
+    the dtypes of :func:`init_cache` (see the module's note). The MoE aux
+    loss is dropped, as the reference drops it."""
+    x = _embed_inputs(cfg, params, batch)
     if cfg.family == FAMILY_SSM:
         return _ssm_prefill(cfg, params, x)
     if cfg.family == FAMILY_HYBRID:
         return _hybrid_prefill(cfg, params, x, max_len)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :]
+    mrope = _mrope(cfg, batch)
     cache = init_cache(cfg, b, max_len, x.device)
     ck, cv = cache["layers"]["k"], cache["layers"]["v"]
     for i, lp in enumerate(params.layers):
-        x, (k, v) = _attn_block(lp, x, cfg, positions=positions)
+        x, (k, v), _ = _attn_block(lp, x, cfg, positions=positions,
+                                   mrope=mrope)
         ck[i, :, :s] = k.to(ck.dtype)
         cv[i, :, :s] = v.to(cv.dtype)
     cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)
@@ -384,8 +442,8 @@ def _hybrid_prefill(cfg: ModelConfig, params: DecoderLM, x, max_len: int
             for name, t in st.items():
                 c[name][i].copy_(t)
         else:
-            x, (k, v) = _attn_block(lp, x, cfg, positions=positions,
-                                    window=cfg.rglru.window)
+            x, (k, v), _ = _attn_block(lp, x, cfg, positions=positions,
+                                       window=cfg.rglru.window)
             c["k"][i].index_copy_(1, slots, k[:, pos].to(c["k"].dtype))
             c["v"][i].index_copy_(1, slots, v[:, pos].to(c["v"].dtype))
     cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)
@@ -396,16 +454,22 @@ def _hybrid_prefill(cfg: ModelConfig, params: DecoderLM, x, max_len: int
 def decode_step(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
                 cache: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step. tokens: [B,1]. The cache's K/V (or recurrent
-    states) are written in place; the returned cache holds them with
-    ``idx + 1``."""
-    x = params.embed(tokens)
+    """One decode step. tokens: [B,1] (or embeds [B,1,D] for a stub
+    config). The cache's K/V (or recurrent states) are written in place;
+    the returned cache holds them with ``idx + 1``. M-RoPE rotates every
+    stream by the step's position."""
+    if cfg.embed_stub and tokens.dim() == 3:
+        x = tokens.to(_dtype(cfg))
+    else:
+        x = params.embed(tokens)
     idx = cache["idx"]
     positions = idx[None, None] * torch.ones((x.shape[0], 1),
                                              dtype=torch.int32,
                                              device=x.device)
+    mrope = positions[None].expand((3,) + positions.shape) if cfg.mrope \
+        else None
     x, new_caches = _run_stack(cfg, params, x, positions=positions,
-                               caches=cache["layers"], idx=idx)
+                               caches=cache["layers"], idx=idx, mrope=mrope)
     x = params.final_norm(x)
     logits = L.unembed(_head_table(cfg, params), x[:, -1:])
     return logits, {"layers": new_caches, "idx": idx + 1}

@@ -7,9 +7,10 @@ kernel when ``flags.device_claims()`` is on), runs the train step with the
 task's knobs (lr scale, data shard), and commits provenance (loss, grad
 norm, seconds) back to the SAME store the steering engine queries, whose
 sweeps run on store snapshots on an analyst thread meanwhile. The loop is
-the reference's (``repro/runtime/executor.py``); on a CUDA device the
-dense, SSM and hybrid families run attention and the SSD and RG-LRU scans
-forward and backward in the hand-written kernels. The replica / remote analysts and the sharded topology need
+the reference's (``repro/runtime/executor.py``); on a CUDA device every
+family runs attention and the SSD and RG-LRU scans forward and backward in
+the hand-written kernels (the MoE experts' products in torch, as the
+reference computes them in XLA). The replica / remote analysts and the sharded topology need
 the replication and sharding modules (ROADMAP Queue 1, the rest of the
 control plane) and raise.
 
@@ -20,8 +21,11 @@ decode in ``cfg.dtype`` against a ``cfg.dtype`` cache (the SSM family: the
 O(1) recurrent state; the hybrid: RG-LRU states and a ring of
 ``min(window, max_len)`` K/V slots), finish with the output written back to
 the store. On a CUDA device the hand-written kernels run prefill and decode
-attention (dense, hybrid), the prefill's SSD scan (SSM) and its RG-LRU scan
-(hybrid).
+attention (dense, MoE, hybrid), the prefill's SSD scan (SSM) and its RG-LRU
+scan (hybrid). Like the reference's, it prefills a request's token prompt
+alone, so the VLM and enc-dec families, whose prefill needs patch
+embeddings or frames, fail at the first admission (a KeyError), as they do
+there; their model bundles serve them.
 """
 from __future__ import annotations
 

@@ -79,6 +79,13 @@ def test_hybrid_serve_phases_on_cpu(chip_smoke, capsys):
     ("mamba2-1.3b", {"ssd_scan": 384}),
     ("recurrentgemma-9b", {"rglru_scan": 208, "flash_attention": 96,
                            "decode_attention": 2976}),
+    ("granite-moe-3b-a800m", {"flash_attention": 256,
+                              "decode_attention": 7936}),
+    ("qwen2-vl-2b", {"flash_attention": 224, "decode_attention": 6944}),
+    # 24 encoder layers and 24 decoder layers of self- and cross-attention
+    # a prefill; the decoder's two a layer and decode step
+    ("seamless-m4t-large-v2", {"flash_attention": 576,
+                               "decode_attention": 11904}),
 ])
 def test_serve_launch_counts_of_the_full_configs(chip_smoke, arch, want):
     """Launches the full-width serve (8 requests, 32 new tokens) must show:
@@ -298,3 +305,257 @@ def test_train_history_steps_both_devices_alike_on_cpu():
     assert first == second and len(first) == 3
     assert all(np.isfinite(v).all() for v in first)
     assert len({loss for loss, _ in first}) == 3   # every step moved the params
+
+
+def test_moe_serve_phases_on_cpu(chip_smoke, capsys):
+    """granite-moe (smoke) through the executor, and its check on a 2-layer
+    cut through the model bundle, CPU against CPU: equal to the bit."""
+    cfg = smoke_config("granite-moe-3b-a800m")
+    serve = chip_smoke.phase_serve(cfg, "cpu", requests=3, prompt_len=21,
+                                   max_new=4, slots=2, max_len=40)
+    assert serve["result"]["finished"] == 3
+    assert serve["result"]["launches"] == {"flash_attention": 0,
+                                           "decode_attention": 0}
+    check = chip_smoke.phase_family_check(cfg, "cpu", prompt_len=9)
+    assert check["layers"] == 2
+    assert [s["max_abs_err"] for s in check["steps"]] == [0.0] * 4
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == ["serve", "serve_check"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_bundle_serve_phases_on_cpu(chip_smoke, capsys, arch):
+    """The VLM and enc-dec families served through the model bundle (2
+    requests; enc-dec: one of cross_kv_len frames and one of fewer), then
+    the check on a 2-layer cut, CPU against CPU: equal to the bit."""
+    cfg = smoke_config(arch)
+    res = chip_smoke.phase_serve_bundle(cfg, "cpu", requests=2,
+                                        prompt_len=12, frames=[16, 10],
+                                        max_new=4, max_len=40)
+    assert res["finished"] == 2 and res["tokens_generated"] == 8
+    assert res["launches"] == {"flash_attention": 0, "decode_attention": 0}
+    assert res["frames"] == ([16, 10] if cfg.family == "encdec" else None)
+    check = chip_smoke.phase_family_check(cfg, "cpu", prompt_len=9,
+                                          frames=10)
+    assert [s["max_abs_err"] for s in check["steps"]] == [0.0] * 4
+    assert check["prompt_len"] == 9
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(x["phase"], x["arch"]) for x in lines] == \
+        [("serve", arch), ("serve_check", arch)]
+
+
+def test_grid_positions_are_three_streams(chip_smoke):
+    pos = chip_smoke.grid_positions(100, 40)
+    assert pos.shape == (3, 1, 100) and pos.dtype == np.int32
+    assert (pos[0] == 0).all() and pos[1, 0, 41] == 1 and pos[2, 0, 41] == 1
+    assert len({tuple(p) for p in pos[:, 0].T}) == 100
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-vl-2b",
+                                  "seamless-m4t-large-v2"])
+def test_new_family_train_phases_on_cpu(chip_smoke, capsys, arch):
+    """The train phase and its card-vs-CPU check for the MoE, VLM and
+    enc-dec families (smoke configs with remat), CPU against CPU here."""
+    import dataclasses
+    cfg = dataclasses.replace(smoke_config(arch), remat=True)
+    train = chip_smoke.phase_train(cfg, "cpu", steps=4, workers=2,
+                                   seq_len=32, batch=4)
+    train["executor"].close()
+    res = train["result"]
+    assert res["steps"] == 4 and np.isfinite(res["losses"]).all()
+    assert set(res["launches"]) == set(chip_smoke.train_launches(cfg, 4, 2))
+    prefixes = {"moe": ("layers.0.moe.",), "vlm": ("layers.0.attn.",),
+                "encdec": ("encoder.0.", "decoder.0.")}[cfg.family]
+    check = chip_smoke.phase_train_check(cfg, "cpu", batch=2, seq_len=32,
+                                         prefixes=prefixes)
+    assert check["loss"][0] == check["loss"][1]
+    assert check["max_grad_err_over_largest"] == 0.0
+    assert any(k.startswith(prefixes) for k in check["params"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == ["train", "train_check"]
+
+
+def test_train_launch_counts_of_the_new_families(chip_smoke):
+    """6 steps on 2 workers, the forward twice (remat): granite cut to
+    MOE_TRAIN_LAYERS in its 4 microbatches; qwen2-vl's 28 layers;
+    seamless's 24 encoder layers and 24 decoder layers' self- and
+    cross-attention."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    n = chip_smoke.MOE_TRAIN_LAYERS
+    gcut = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                               num_layers=n)
+    assert chip_smoke.train_launches(gcut, 6, 3) == {
+        "flash_attention": n * 6 * 4 * 2, "flash_attention_bwd": n * 6 * 4,
+        "wq_claim": 3}
+    assert chip_smoke.train_launches(get_config("qwen2-vl-2b"), 6, 3) == {
+        "flash_attention": 336, "flash_attention_bwd": 168, "wq_claim": 3}
+    assert chip_smoke.train_launches(get_config("seamless-m4t-large-v2"),
+                                     6, 3) == {
+        "flash_attention": 864, "flash_attention_bwd": 432, "wq_claim": 3}
+
+
+def test_flash_bounds_of_the_cross_shapes(chip_smoke):
+    """Not causal: every query sees every key (Sq x Skv pairs), q and o
+    counted at Sq, k and v at Skv; a causal square shape keeps its count."""
+    assert chip_smoke.flash_pairs(64, skv=4096, causal=False) == 64 * 4096
+    assert chip_smoke.flash_pairs(300, skv=100) == 100 * 101 // 2 + 200 * 100
+    assert chip_smoke.flash_pairs(2048, 700) == \
+        700 * 701 // 2 + (2048 - 700) * 700
+    b = chip_smoke.flash_bound(64, 16, 16, 64, torch.float32, skv=4096,
+                               causal=False)
+    assert b["useful_ops"] == 4.0 * 64 * 4096 * 64 * 16
+    assert b["bytes"] == 4 * 2 * 64 * (64 * 16 + 4096 * 16)
+    bb = chip_smoke.flash_bwd_bound(8, 256, 16, 16, 64, torch.bfloat16,
+                                    skv=2048, causal=False)
+    assert bb["ops"] == 10.0 * 8 * 256 * 2048 * 64 * 16
+    assert bb["bytes"] == 2 * 8 * 64 * 4 * (256 * 16 + 2048 * 16)
+
+
+def test_route_pin_replays_the_first_runs_experts(chip_smoke):
+    """The check's second run takes the first run's experts, weighed by its
+    own probabilities, and counts the tokens it would have routed
+    otherwise; the layers route by their own top-k again after each run."""
+    from repro_torch.models import moe
+    cfg = smoke_config("granite-moe-3b-a800m")
+    mod = moe.MoE(torch.Generator().manual_seed(0), cfg, torch.float32)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((64, cfg.d_model)),
+                        dtype=torch.float32)
+    x2 = x + 0.5 * torch.as_tensor(rng.standard_normal(x.shape),
+                                   dtype=torch.float32)
+    pin = chip_smoke.RoutePin(cfg)
+    w0, idx0, _ = pin.run("record", (mod,), moe.route, mod, x, cfg)
+    assert mod.pin is None
+    _, own, _ = moe.route(mod, x, cfg)
+    assert torch.equal(own, idx0)      # recording leaves the choice alone
+    _, own, _ = moe.route(mod, x2, cfg)
+    w1, idx1, _ = pin.run("replay", (mod,), moe.route, mod, x2, cfg)
+    assert mod.pin is None
+    assert torch.equal(idx1, idx0)
+    moved = int((own != idx0).any(-1).sum())
+    assert 0 < moved < 64
+    assert pin.summary() == {"route_differences": moved,
+                             "route_decisions": 64,
+                             "route_differences_limit": 2}
+    assert torch.allclose(w1.sum(-1), torch.ones(64))
+    assert chip_smoke.RoutePin(smoke_config("qwen2-0.5b")).summary() == {}
+
+
+@pytest.mark.parametrize("differences,decisions,ok", [
+    (2, 80, True), (3, 80, False),           # at least 2 tokens
+    (8, 8192, True), (9, 8192, False),       # 1e-3 of the decisions
+    (40, 64, False)])
+def test_route_pin_check_bounds_the_flips(chip_smoke, differences,
+                                          decisions, ok):
+    """More flipped tokens than the larger of 2 and 1e-3 of the decisions
+    fail the check: a wrong router or top-k on the card would flip most."""
+    pin = chip_smoke.RoutePin(smoke_config("granite-moe-3b-a800m"))
+    pin.differences, pin.decisions = differences, decisions
+    if ok:
+        pin.check()
+    else:
+        with pytest.raises(AssertionError, match="routing decisions"):
+            pin.check()
+
+
+def test_family_shapes_split_each_runs_launches(chip_smoke):
+    """The kernel rows of the MoE, VLM and enc-dec paths: the shares of one
+    kernel's launches in one run sum to 1, each a whole number of the run's
+    launches (seamless: a third of its flash launches a prefill part, with
+    the short request's frames apart; half its decode launches each)."""
+    import dataclasses
+    from fractions import Fraction
+    from repro_torch.configs import get_config
+    fams = tuple(get_config(a) for a in ("granite-moe-3b-a800m",
+                                         "qwen2-vl-2b",
+                                         "seamless-m4t-large-v2"))
+    gcut = dataclasses.replace(fams[0],
+                               num_layers=chip_smoke.MOE_TRAIN_LAYERS)
+    runs = {}
+    for c in fams:
+        runs[c.name] = chip_smoke.SERVE_LAUNCHES[c.family](c, 8, 32)
+        runs[f"{c.name} train"] = chip_smoke.train_launches(
+            gcut if c is fams[0] else c, 6, 3)
+    total = {}
+    for kernel, arch, share, kw in chip_smoke.family_shapes(fams):
+        n = runs[arch][kernel] * share
+        assert n.denominator == 1 and n > 0
+        total[kernel, arch] = total.get((kernel, arch), 0) + share
+    assert set(total.values()) == {Fraction(1)}
+    assert {k for k, _ in total} == {"flash_attention", "decode_attention",
+                                     "flash_attention_bwd"}
+    e = fams[2].name
+    assert {(kw["s"], kw.get("skv", 0), share * 576)
+            for k, a, share, kw in chip_smoke.family_shapes(fams)
+            if (k, a) == ("flash_attention", e)} == {
+        (4096, 0, 168), (2500, 0, 24), (64, 4096, 168), (64, 2500, 24),
+        (64, 0, 192)}
+
+
+def test_kernels_line_picks_each_runs_rows(chip_smoke):
+    """The kernels line from synthetic rows of every case: each (kernel,
+    run) entry carries the row of its own kernel and shape (the family
+    train runs' claim entries the claim kernel's row, not another kernel's
+    of the same arch), and a run's launches split by shape sum to its
+    count."""
+    from repro_torch.configs import get_config
+    cfg, scfg, hcfg = (get_config(a) for a in
+                       ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b"))
+    fams = tuple(get_config(a) for a in ("granite-moe-3b-a800m",
+                                         "qwen2-vl-2b",
+                                         "seamless-m4t-large-v2"))
+    made = iter(range(1, 1000))
+
+    def row(kernel, **kw):
+        return {"kernel": kernel, "arch": None, "max_abs_err": 0.0,
+                "ms": float(next(made)), "plain_ms": 1.0, "bound_ms": 0.1,
+                "bound_by": "bytes", "library_ms": None, "device_ms": 1.0,
+                **kw}
+
+    train, s_train, h_train = (f"{c.name} train" for c in (cfg, scfg, hcfg))
+    rows = [row("wq_claim", n=100_000, workers=936, k=1),
+            row("flash_attention", arch=train, dtype="bfloat16"),
+            row("wq_claim", arch=train, n=6, workers=2, k=1),
+            row("flash_attention_bwd", arch=train),
+            row("flash_attention", arch=cfg.name, dtype="float32"),
+            row("flash_attention", arch=hcfg.name, shape_q=[1, 1000, 16, 256]),
+            row("decode_attention", arch=cfg.name, kv_len=1000,
+                dtype="bfloat16"),
+            row("decode_attention", arch=hcfg.name, kv_len=1001, window=0),
+            row("ssd_scan", case="main"), row("ssd_scan", case="train"),
+            row("ssd_scan_bwd", case="train"),
+            row("rglru_scan", case="main"), row("rglru_scan", case="train"),
+            row("rglru_scan_bwd", case="train"),
+            row("flash_attention", arch=h_train),
+            row("flash_attention_bwd", arch=h_train)]
+    extra = [(row(k, **{x: kw[x] for x in ("arch", "causal") if x in kw}),
+              arch, share)
+             for k, arch, share, kw in chip_smoke.family_shapes(fams)]
+    launches = {None: {"wq_claim": 6},
+                train: chip_smoke.train_launches(cfg, 6, 3),
+                s_train: chip_smoke.train_launches(scfg, 6, 3),
+                h_train: chip_smoke.train_launches(hcfg, 6, 3),
+                cfg.name: {"flash_attention": 192, "decode_attention": 5952},
+                hcfg.name: {"flash_attention": 96, "decode_attention": 2976,
+                            "rglru_scan": 208},
+                scfg.name: {"ssd_scan": 384}}
+    for c in fams:
+        launches[c.name] = chip_smoke.SERVE_LAUNCHES[c.family](c, 8, 32)
+        launches[f"{c.name} train"] = chip_smoke.train_launches(c, 6, 3)
+    line = chip_smoke.kernels_line(cfg, scfg, hcfg, fams, rows, extra,
+                                   launches)["kernels"]
+    claim_ms = rows[2]["ms"]
+    claims = [e for e in line if e["name"] == "wq_claim"]
+    assert len(claims) == 7
+    assert all(e["ms"] == claim_ms for e in claims if e["arch"])
+    by_run = {}
+    for e in line:
+        by_run[e["name"], e["arch"]] = by_run.get((e["name"], e["arch"]),
+                                                  0) + e["launches"]
+    assert by_run == {(k, a): n for a, run in launches.items()
+                      for k, n in run.items()}
+    seamless = [e for e in line if e["arch"] == fams[2].name
+                and e["name"] == "decode_attention"]
+    assert [(e["launches"], e["launches_share"]) for e in seamless] == \
+        [(5952, "1/2"), (5952, "1/2")]

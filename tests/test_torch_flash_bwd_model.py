@@ -110,6 +110,8 @@ COVER = [  # sq, skv, g, causal, window, dh
     (130, 130, 2, False, 0, 128),     # not causal
     (190, 190, 5, False, 40, 64),     # windowed, not causal
     (64, 100, 1, True, 0, 64),        # more keys than queries
+    (256, 2048, 1, False, 0, 64),     # cross-attention training (seamless)
+    (64, 1000, 2, False, 0, 128),     # cross-attention, ragged keys
 ]
 
 

@@ -17,15 +17,17 @@ from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_bwd, flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
-from repro_torch.models.attention import _sdpa  # noqa: E402
+from repro_torch.models.attention import _sdpa, sdpa_ref  # noqa: E402
 from repro_torch.models.rglru import RGLRU, _rglru_core  # noqa: E402
 from repro_torch.runtime.executor import ServeExecutor  # noqa: E402
 
@@ -166,6 +168,76 @@ def test_flash_kernel_equals_plain(dev, b, s, hq, hkv, dh, causal, window,
     torch.cuda.synchronize()
     assert got.dtype == dtype
     _assert_close(got, want)
+
+
+# the enc-dec and cross-attention shapes: queries and keys of different
+# counts, not causal (every query sees every key)
+CROSS_CASES = [  # b, sq, skv, hq, hkv, dh, dtype
+    (1, 4096, 4096, 16, 16, 64, torch.float32),   # seamless's encoder
+    (1, 64, 4096, 16, 16, 64, torch.float32),     # cross-attention prefill
+    (8, 256, 2048, 16, 16, 64, torch.bfloat16),   # cross-attention training
+    (1, 1000, 300, 4, 2, 128, torch.float32),     # more queries than keys
+    (2, 17, 1031, 6, 3, 64, torch.bfloat16),      # ragged, one query tile
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,dtype", CROSS_CASES)
+def test_flash_kernel_cross_shapes_equal_plain(dev, b, sq, skv, hq, hkv, dh,
+                                               dtype):
+    """Not causal, Sq != Skv: every query tile reads all of the keys (the
+    pairing of query tiles i and n-1-i only orders the work)."""
+    rng = np.random.default_rng(sq + skv)
+    q = _randn(rng, (b, sq, hq, dh), dtype, dev)
+    k, v = (_randn(rng, (b, skv, hkv, dh), dtype, dev) for _ in range(2))
+    got, lse = flash_attention_fwd(q, k, v, causal=False, return_lse=True)
+    want = flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    assert float((lse - flash_attention_lse_ref(q, k, causal=False))
+                 .abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,dtype", CROSS_CASES[1:])
+def test_flash_backward_cross_shapes_equal_plain(dev, b, sq, skv, hq, hkv,
+                                                 dh, dtype):
+    """The backward at the same shapes: dq, dk and dv each within 1e-4 of
+    its largest (plus one bf16 step in bf16) of the plain backward on the
+    forward kernel's own output and LSE; every key tile's block walks all
+    of the query tiles, fewer or more than its keys."""
+    rng = np.random.default_rng(sq * skv)
+    q, do = (_randn(rng, (b, sq, hq, dh), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (b, skv, hkv, dh), dtype, dev) for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v, causal=False, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        tol = 1e-4 * max(1.0, float(w.float().abs().max()))
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * w.float().abs()
+        assert bool(((g.float() - w.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_one_query_against_every_key_goes_to_the_decode_kernel(dev, dtype):
+    """Enc-dec's cross-attention at decode: one query, no cache tail, 4096
+    encoder frames at 16/16 heads of 64. ``_sdpa`` sends it to the decode
+    kernel with kv_len = Smax = 4096, made on the card; it equals the plain
+    attention."""
+    rng = np.random.default_rng(4096)
+    q = _randn(rng, (1, 1, 16, 64), dtype, dev)
+    k, v = (_randn(rng, (1, 4096, 16, 64), dtype, dev) for _ in range(2))
+    reset_launch_counts()
+    got = _sdpa(q, k, v, causal=False)
+    counts = launch_counts()
+    assert counts["decode_attention"] == 1 and counts["flash_attention"] == 0
+    want = sdpa_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    kvl = torch.tensor([4096], dtype=torch.int32, device=dev)
+    _assert_close(decode_attention_fwd(q, k, v, kvl),
+                  decode_attention_ref(q, k, v, kvl))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -388,16 +460,18 @@ def test_dispatch_launches_kernels_or_raises(dev):
     kops.wq_claim(torch.full((5,), 2, dtype=torch.int32, device=dev),
                   torch.zeros(5, dtype=torch.int32, device=dev),
                   num_workers=1, k=2)
-    _sdpa(q[:, :1], q[:, :1], q[:, :1], causal=True)   # 1-token prefill
+    # a 1-token prefill: one query, no cache tail, so the decode kernel
+    # (the reference's Pallas dispatch sends it there too)
+    _sdpa(q[:, :1], q[:, :1], q[:, :1], causal=True)
     x = torch.zeros((4, 5, 8), device=dev)
     kops.ssd_scan(x, x[:2, :, :4], x[:2, :, :4], x[..., 0], x[..., 0],
                   heads_per_bc=2)
     kops.rglru_scan(x, x)
     _sdpa(q[:, :1], q, q, causal=True, window=2, q_offset=3,
           kv_len=torch.tensor([4], dtype=torch.int32, device=dev))
-    assert launch_counts() == {"wq_claim": 1, "flash_attention": 2,
+    assert launch_counts() == {"wq_claim": 1, "flash_attention": 1,
                                "flash_attention_bwd": 0,
-                               "decode_attention": 2, "ssd_scan": 1,
+                               "decode_attention": 3, "ssd_scan": 1,
                                "ssd_scan_bwd": 0, "rglru_scan": 1,
                                "rglru_scan_bwd": 0}
     with pytest.raises(TypeError):

@@ -12,7 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
-from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, smoke_config  # noqa: E402
 from repro_torch.interop import flatten, load_jax_params, params_from_jax  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -33,9 +33,12 @@ def pair():
 
 def test_configs_are_copied_unchanged():
     for arch in ("qwen2-0.5b", "glm4-9b", "mamba2-1.3b",
-                 "recurrentgemma-9b"):
+                 "recurrentgemma-9b", "granite-moe-3b-a800m", "qwen2-vl-2b",
+                 "seamless-m4t-large-v2", "kimi-k2-1t-a32b"):
         assert repr(get_config(arch)) == repr(jax_get_config(arch))
-    for arch in ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b"):
+    for arch in ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b",
+                 "granite-moe-3b-a800m", "qwen2-vl-2b",
+                 "seamless-m4t-large-v2", "kimi-k2-1t-a32b"):
         assert repr(smoke_config(arch)) == repr(jax_smoke_config(arch))
 
 
@@ -74,8 +77,19 @@ def test_prefill_and_decode_match_reference(pair):
     assert int(tc["idx"]) == int(jc["idx"]) == 18
 
 
-def test_other_families_name_their_roadmap_item():
-    for arch in ("granite-moe-3b-a800m", "qwen2-vl-2b",
-                 "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(smoke_config(arch))
+def test_every_arch_builds():
+    """Every family is ported: each ARCH_IDS entry's bundle initialises the
+    reference's param tree (the same leaves, shapes and count) and its
+    cache."""
+    from repro.models import build_model as jax_build_model
+    for arch in ARCH_IDS:
+        cfg = smoke_config(arch)
+        m = build_model(cfg)
+        params = m.init(torch.Generator().manual_seed(0))
+        want = params_from_jax(jax.tree.map(np.asarray, jax_build_model(
+            jax_smoke_config(arch)).init(jax.random.PRNGKey(0))))
+        sd = params.state_dict()
+        assert sd.keys() == want.keys(), arch
+        assert all(sd[k].shape == want[k].shape for k in want), arch
+        cache = m.init_cache(2, 8, "cpu")
+        assert int(cache["idx"]) == 0

@@ -1,7 +1,9 @@
 """The port's ServeExecutor: a twin of the reference's serve test on the CPU,
 greedy outputs identical to the reference executor (Pallas kernels in
-interpret mode) on converted params, for the dense, SSM and hybrid
-families, and no silent move to the CPU."""
+interpret mode) on converted params, for the dense, SSM, hybrid and MoE
+families; the VLM and enc-dec families, which the reference's executor
+cannot serve (it feeds token prompts alone), fail in the port as they fail
+there; and no silent move to the CPU."""
 import dataclasses
 
 import numpy as np
@@ -75,6 +77,31 @@ def test_hybrid_greedy_outputs_identical_to_reference_executor():
     _greedy_parity("recurrentgemma-9b")
 
 
+def test_moe_greedy_outputs_identical_to_reference_executor():
+    """granite-moe (smoke: 4 experts, top 2, sort dispatch): capacity 1 a
+    token at decode, as in the reference."""
+    _greedy_parity("granite-moe-3b-a800m")
+
+
+@pytest.mark.parametrize("arch,key", [("qwen2-vl-2b", "embeds"),
+                                      ("seamless-m4t-large-v2", "frames")])
+def test_executor_fails_for_vlm_and_encdec_as_the_reference_does(arch, key):
+    """Both executors admit a request by prefilling its token prompt alone,
+    so the VLM prefill misses its patch embeddings and the enc-dec prefill
+    its frames: the same KeyError on both sides. The port serves these
+    families through the model bundle's prefill / decode_step instead
+    (``tests/test_torch_vlm.py``, ``tests/test_torch_encdec.py``)."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), attn_impl="pallas")
+    ref = JaxServeExecutor(jcfg, slots=1, max_len=32)
+    ex = ServeExecutor(smoke_config(arch), slots=1, max_len=32,
+                       device="cpu")
+    prompts = _prompts(jcfg, n=1)
+    for e in (ref, ex):
+        e.submit(prompts, max_new=2)
+        with pytest.raises(KeyError, match=key):
+            e.drain()
+
+
 def test_max_len_cap_finishes_early():
     cfg = smoke_config("qwen2-0.5b")
     ex = ServeExecutor(cfg, slots=1, max_len=12, device="cpu")
@@ -100,6 +127,12 @@ def test_cli_serves_on_requested_device(capsys):
 def test_cli_serves_mamba2_on_cpu(capsys):
     serve.main(["--arch", "mamba2-1.3b", "--smoke", "--requests", "3",
                 "--slots", "2", "--max-new", "3", "--device", "cpu"])
+    assert "served 3 requests" in capsys.readouterr().out
+
+
+def test_cli_serves_granite_moe_on_cpu(capsys):
+    serve.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--requests",
+                "3", "--slots", "2", "--max-new", "3", "--device", "cpu"])
     assert "served 3 requests" in capsys.readouterr().out
 
 

@@ -4,7 +4,8 @@ tests (``tests/test_checkpoint_and_data.py``), the 24-step loss history
 held against the reference's executor from the same init, the port's
 ``store.npz`` read by the reference's checkpointer, the arms that are not
 ported, and the ``repro_torch.launch.train`` command line; the executor and
-the command line also for the SSM and hybrid families."""
+the command line also for the SSM, hybrid, MoE, VLM and enc-dec families,
+and the checkpoint round trip of the MoE, VLM and enc-dec state."""
 import json
 
 import numpy as np
@@ -20,6 +21,7 @@ from repro.data import pipeline as jpipeline  # noqa: E402
 from repro.runtime.executor import TrainExecutor as JaxTrainExecutor  # noqa: E402
 from repro_torch import flags  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.checkpoint.checkpointer import _leaves as ck_leaves  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import WorkQueue  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, Prefetcher, batch_for  # noqa: E402
@@ -259,14 +261,24 @@ def test_data_pipeline_deterministic_per_shard():
 
 
 def test_data_pipeline_families():
-    """Twin of test_checkpoint_and_data.py:79 for the dense family (the
-    VLM / enc-dec inputs come with those families and raise)."""
-    cfg = smoke_config("qwen2-0.5b")
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, batch_size=2)
-    assert batch_for(cfg, dc, 0)["tokens"].shape == (2, 16)
-    for arch in ("seamless-m4t-large-v2", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            batch_for(smoke_config(arch), dc, 0)
+    """Twin of test_checkpoint_and_data.py:79 (the enc-dec frames, the VLM
+    patch embeddings and M-RoPE positions, the SSM tokens), each batch the
+    reference's, bit for bit."""
+    for arch in ("seamless-m4t-large-v2", "qwen2-vl-2b", "mamba2-1.3b"):
+        cfg = smoke_config(arch)
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, batch_size=2)
+        b = batch_for(cfg, dc, 0)
+        if cfg.family == "encdec":
+            assert b["frames"].shape[-1] == cfg.d_model
+        elif cfg.embed_stub:
+            assert b["embeds"].shape == (2, 16, cfg.d_model)
+        else:
+            assert b["tokens"].shape == (2, 16)
+        want = jpipeline.batch_for(jax_smoke_config(arch), jpipeline.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=16, batch_size=2), 0)
+        assert b.keys() == want.keys()
+        assert all(np.array_equal(b[k], want[k]) and b[k].dtype == want[k].dtype
+                   for k in want)
 
 
 def test_prefetcher_returns_the_shard_batch():
@@ -339,8 +351,7 @@ def test_train_command_line(capsys, tmp_path):
 
 
 # --------------------------------------------- the SSM and hybrid families
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
-def test_train_executor_trains_the_ssm_and_hybrid_families(arch):
+def _executor_matches_reference(arch):
     """4 store-driven steps on 2 workers with device claims (the claim
     kernel's plain version on the CPU) and steering on snapshots: every
     task FINISHED with a finite loss written back to the store, and the
@@ -369,6 +380,53 @@ def test_train_executor_trains_the_ssm_and_hybrid_families(arch):
     assert ex.last_steering is not None
     np.testing.assert_allclose(losses, [h["loss"] for h in jhist],
                                rtol=HISTORY_REL_TOL)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_train_executor_trains_the_ssm_and_hybrid_families(arch):
+    _executor_matches_reference(arch)
+
+
+# ------------------------------------ the MoE, VLM and enc-dec families
+NEW_FAMILIES = ["granite-moe-3b-a800m", "qwen2-vl-2b",
+                "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_train_executor_trains_the_moe_vlm_and_encdec_families(arch):
+    """As the SSM and hybrid twin: the batches are the pipeline's patch
+    embeddings and M-RoPE positions (VLM) or frames and tokens (enc-dec);
+    the MoE loss carries its aux term."""
+    _executor_matches_reference(arch)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES + ["kimi-k2-1t-a32b"])
+def test_checkpoint_roundtrip_new_families(tmp_path, arch):
+    """The expert slabs, the router, the encoder and decoder stacks and
+    their optimizer state (kimi-k2: Adafactor's statistics keyed by the
+    reference's leaves, ``layers/moe/up``, ...) save and restore equal."""
+    cfg = smoke_config(arch)
+    state = _state(cfg)
+    ck = Checkpointer(str(tmp_path), async_write=False)
+    ck.save(3, state)
+    step, restored, _ = ck.restore(_state(cfg, seed=1))
+    assert step == 3
+    flat = lambda st: dict(ck_leaves(st))      # noqa: E731
+    want, got = flat(state), flat(restored)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    if cfg.moe is not None:
+        assert any(".moe.up" in k for k in want)
+    if cfg.optimizer == "adafactor":
+        assert "opt/inner/layers/moe/up/vr" in want
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_train_command_line_moe_vlm_encdec(capsys, arch):
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                    "2", "--workers", "2", "--seq-len", "32", "--batch",
+                    "4"])
+    assert "trained 2 steps on cpu" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])

@@ -42,6 +42,23 @@ Phases, each printing JSON lines:
      ``wq_claim`` kernel, and must return the claim dicts of the host path;
      each claim_all's wall ms, on the device path and the host path, and
      the kernel's device time in one more device claim_all;
+  3b. control plane (``phase_control_plane``): the same 100,000 tasks and
+     936 workers as 4 shards of 234 behind a ``ShardRouter``, every shard
+     claiming through the ``wq_claim`` kernel, against one 936-worker
+     queue claiming on the host: 3 claim_alls each at k 1 and k 4 equal
+     to its claim dicts; a replica process per shard, synced across a log
+     truncate, bit-identical to its shard; the remote sweep equal to the
+     host queue's Q1-Q7; shard 0 killed with claims in flight and its
+     replica promoted (no task lost, its claims then the host queue's); a
+     sharded checkpoint restored at its version vector; a drained shard
+     refilled by rebalance (live task ids conserved); the claim launches
+     exact; then qwen2-0.5b at full width and depth trained by a sharded
+     executor (2 shards of 2 workers, remote replicas, a checkpoint every
+     3 steps, 6 steps of 2 x 2048, shard 1 failed and promoted after step
+     3): every task FINISHED, exact launches. Wall ms of each claim_all on
+     both paths, replica sync, remote sweep and rebalance ms, promote and
+     checkpoint seconds, and the kernel's device time at a shard's
+     shape (N 25,000, W 234);
   4. train: ``TrainExecutor`` trains qwen2-0.5b at full width and depth
      (bf16 compute, fp32 master params, remat, AdamW; batch 8 x 2048
      tokens) for 6 store-driven steps claimed by 2 workers through the
@@ -118,6 +135,7 @@ import functools
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -130,6 +148,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import SteeringEngine, WorkQueue  # noqa: E402
+from repro_torch.core.schema import Status  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_for  # noqa: E402
 from repro_torch.flags import device_claims  # noqa: E402
 from repro_torch.kernels import launch_counts, library, reset_launch_counts  # noqa: E402
@@ -1032,6 +1051,336 @@ def claim_all_kernel_ms(tasks: int, workers: int, device,
     raise AssertionError("no record of the claim kernel in three profiles")
 
 
+# ------------------------------------------------------ phase control plane
+CONTROL_PLANE = "control_plane"
+CONTROL_PLANE_SHARDS = 4
+SHARDED_TRAIN = "qwen2-0.5b train, 2 shards"
+SHARDED_TRAIN_BATCH = 2
+SHARDED_TRAIN_STEPS = 6
+
+
+def _dom_in(ids: np.ndarray) -> np.ndarray:
+    h = (ids * 2654435761) % (1 << 10)
+    return np.stack([(h % 977) / 976.0, ((h * 3) % 911) / 910.0,
+                     ((h * 7) % 1013) / 1012.0], 1)
+
+
+def _dom_out(ids: np.ndarray) -> np.ndarray:
+    # dyadic values (and dyadic clocks below): exact in float64, so the
+    # merged sweeps' sums equal the oracle's bit for bit
+    return np.stack([(ids % 7) / 8.0, (ids % 5) / 4.0, (ids % 3) / 2.0], 1)
+
+
+def _shard_rows(router, ids: np.ndarray):
+    """(shard, rows) of global task ids (shard stores hold ids ascending)."""
+    owner = router.shard_of(ids)
+    for s in range(router.num_shards):
+        m = owner == s
+        if m.any():
+            tid = router.shards[s].wq.store.col("task_id")
+            pos = np.searchsorted(tid, ids[m])
+            check(np.array_equal(tid[pos], ids[m]), f"shard {s} ids")
+            yield s, pos
+
+
+def _launching_shards(router) -> int:
+    """wq_claim launches the router's next claim_all makes: one per live
+    shard that claims on the device and holds rows at or past its scan
+    start (a queue with none left to scan launches nothing)."""
+    return sum(1 for sh in router.shards
+               if sh.alive and sh.wq.device_claim
+               and sh.wq.store.n_rows > sh.wq.scan_start())
+
+
+def _count_claim_launches(router, box: dict) -> None:
+    """Make every ``router.claim_all`` add the launches it makes to
+    ``box["want"]`` first."""
+    inner = router.claim_all
+
+    def claim_all(*args, **kw):
+        box["want"] += _launching_shards(router)
+        return inner(*args, **kw)
+    router.claim_all = claim_all
+
+
+def phase_control_plane(device, *, tasks=100_000, workers_per_shard=234,
+                        rounds=3, train_cfg=None, train_seq_len=2048,
+                        ckpt_dir=None) -> dict:
+    """The sharded, replicated store at the claim phase's scale, every
+    shard claiming through the claim kernel on ``device``, against one
+    ``CONTROL_PLANE_SHARDS * workers_per_shard``-worker primary claiming
+    on the host (the oracle), then the sharded executor. Raises at the
+    first check that fails:
+
+    - claims: ``rounds`` claim_alls at k 1 and at k 4 (no stealing), each
+      claim dict equal to the oracle's id for id; the claimed tasks finish
+      on both with the same outputs and dyadic clocks;
+    - replicas: one replica process per shard over a pipe, synced, its
+      log truncated, synced again at a pinned version vector: its columns
+      bit-identical to its shard's; the remote sweep (Q1-Q7 partials in
+      the replica processes, merged here) equal to the oracle's;
+    - failover: shard 0's primary dies with claims in flight; the promoted
+      replica claims on ``device`` through the kernel (the router's
+      ``device_claim``), has no RUNNING row, loses no task, and the next
+      claims (k 1, k 4) equal the oracle's, which requeued the same claims;
+    - sharded checkpoint: saved and restored at its version vector, the
+      merged sweep equal;
+    - rebalance: shard 1 claimed dry, refilled by ``rebalance`` from its
+      siblings, the live task ids unchanged;
+    - the launches of the claim kernel, counted exactly on a card: one
+      per shard per claim_all of the drill (every shard is live and has
+      rows left at each), one per claim_all that drains shard 1;
+    - train (``train_cfg``): ``TrainExecutor`` with 2 shards of 2 workers,
+      remote replicas for the sweeps, a checkpoint every 3 steps,
+      ``SHARDED_TRAIN_STEPS`` steps of ``SHARDED_TRAIN_BATCH`` sequences,
+      shard 1 failed and promoted once step 3 has run: every task
+      FINISHED with a finite loss, the shards' out0 the history's losses,
+      the flash and claim kernels' launches exact.
+    """
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import ShardRouter
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    shards = CONTROL_PLANE_SHARDS
+    W, L = shards * workers_per_shard, workers_per_shard
+    ckpt_dir = ckpt_dir or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build",
+        "chip_smoke_control_plane")
+    router = ShardRouter(shards, L, capacity=2 * tasks // shards + 1024,
+                         replicate="remote", device=device,
+                         device_claim=True)
+    oracle = WorkQueue(num_workers=W, capacity=2 * tasks, device="cpu",
+                       device_claim=False)
+    steer = SteeringEngine(oracle)
+    ids = np.arange(tasks, dtype=np.int64)
+    for q in (router, oracle):
+        check(np.array_equal(q.add_tasks(0, tasks, domain_in=_dom_in(ids),
+                                         duration_est=1.0, now=0.0), ids),
+              "task ids")
+    wall_ms = {"device_sharded": [], "host_oracle": []}
+    clock = [1.0]
+
+    def claim_round(k, *, finish=True, skip=None):
+        t0 = time.perf_counter()
+        got = router.claim_all(k=k, now=clock[0], steal=False)
+        wall_ms["device_sharded"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want = oracle.claim_all(k=k, now=clock[0], steal=False)
+        wall_ms["host_oracle"].append((time.perf_counter() - t0) * 1e3)
+        got = {g: np.sort(router.shards[s].wq.store.col("task_id")[rows])
+               for g, (s, rows) in got.items() if len(rows)}
+        want = {g: np.sort(oracle.store.col("task_id")[rows])
+                for g, rows in want.items() if len(rows)}
+        check(got.keys() == want.keys(), f"claim dict keys (k={k})")
+        check(all(np.array_equal(got[g], want[g]) for g in want),
+              f"claim dicts differ from the oracle's (k={k})")
+        claimed = np.sort(np.concatenate(list(want.values())))
+        done = claimed if finish else claimed[(claimed % W) // L != 0]
+        oracle.finish(done, now=clock[0] + 1.0, domain_out=_dom_out(done))
+        for s, pos in _shard_rows(router, done):
+            wq = router.shards[s].wq
+            wq.finish(pos, now=clock[0] + 1.0,
+                      domain_out=_dom_out(wq.store.col("task_id")[pos]))
+        clock[0] += 2.0
+        return claimed
+
+    def oracle_sweep():
+        view = oracle.store.snapshot_view()
+        return ShardRouter.oracle_normalize(
+            steer.run_all(clock[0], view=view), view)
+
+    res = {"phase": CONTROL_PLANE, "device": str(device), "tasks": tasks,
+           "shards": shards, "workers_per_shard": L, "workers": W,
+           "rounds_per_k": rounds, "replicate": "remote"}
+    if on_card:
+        reset_launch_counts()
+    claimed = 0
+    for k in (1, 4):
+        for _ in range(rounds):
+            claimed += len(claim_round(k))
+        if k == 1:      # replicas acked, then every shard truncates its log
+            t0 = time.perf_counter()
+            router.sync_replicas()
+            res["replica_sync_ms"] = (time.perf_counter() - t0) * 1e3
+            res["log_records_truncated"] = router.compact()
+            check(res["log_records_truncated"] > 0
+                  and all(sh.wq.log.base > 0 for sh in router.shards),
+                  "no shard's log was truncated")
+    res["tasks_claimed"] = claimed
+    t0 = time.perf_counter()
+    vec = router.sync_replicas()
+    res["replica_sync_pinned_ms"] = (time.perf_counter() - t0) * 1e3
+    views = router.snapshot_vector()
+    check(tuple(vec) == tuple(v.version for v in views), "pinned vector")
+    for sh, view in zip(router.shards, views):
+        for m in sh.replicator.members:
+            cols = m.fetch_remote_state()["snapshot"]["cols"]
+            check(all(np.array_equal(cols[n], view.col(n), equal_nan=True)
+                      for n in sh.wq.store.cols),
+                  f"shard {sh.index}: replica columns differ")
+            check(m.remote_pid != os.getpid(), "replica in this process")
+    t0 = time.perf_counter()
+    swept = router.remote_sweep(clock[0], versions=vec, sync=False)
+    res["remote_sweep_ms"] = (time.perf_counter() - t0) * 1e3
+    check(json.dumps(ShardRouter.comparable(swept), sort_keys=True,
+                     default=str)
+          == json.dumps(oracle_sweep(), sort_keys=True, default=str),
+          "remote merged sweep differs from the oracle's")
+    res["version_vector"] = [int(v) for v in vec]
+
+    # failover: shard 0 dies with claims in flight; its replica is promoted
+    finished = set(oracle.store.col("task_id")[
+        oracle.store.col("status") == int(Status.FINISHED)].tolist())
+    in_flight = claim_round(1, finish=False)
+    stranded = in_flight[(in_flight % W) // L == 0]
+    check(len(stranded) > 0, "no claim in flight on shard 0")
+    router.fail_shard(0)
+    t0 = time.perf_counter()
+    wq0 = router.promote_shard(0)
+    res["promote_s"] = time.perf_counter() - t0
+    check(wq0.device_claim and str(wq0.device) == str(device),
+          f"promoted queue claims on {wq0.device} "
+          f"(device claims {wq0.device_claim})")
+    check(not (wq0.store.col("status") == int(Status.RUNNING)).any(),
+          "RUNNING rows on the promoted shard")
+    tid, st = oracle.store.col("task_id"), oracle.store.col("status")
+    rows = np.nonzero((st == int(Status.RUNNING)) & ((tid % W) // L == 0))[0]
+    check(np.array_equal(np.sort(tid[rows]), np.sort(stranded)),
+          "stranded claims")
+    oracle.store.update(rows, status=int(Status.READY))
+    oracle.invalidate_cursors(rows)
+    check(np.array_equal(router.live_task_ids(), ids), "tasks lost")
+    fin_now = np.concatenate([sh.wq.store.col("task_id")[
+        sh.wq.store.col("status") == int(Status.FINISHED)]
+        for sh in router.shards])
+    check(finished <= set(fin_now.tolist()), "a committed finish was lost")
+    for k in (1, 4):
+        claimed_after = claim_round(k)
+        check(((claimed_after % W) // L == 0).any(),
+              "the promoted shard claims nothing")
+    res["stranded_claims_requeued"] = int(len(stranded))
+
+    # the sharded checkpoint, restored at its version vector
+    ck = Checkpointer(ckpt_dir, keep=1, async_write=False)
+    vec = [int(v) for v in router.version_vector()]
+    before = json.dumps(ShardRouter.comparable(
+        router.run_all(clock[0], views=router.snapshot_vector())),
+        sort_keys=True, default=str)
+    t0 = time.perf_counter()
+    ck.save(1, {"step": torch.zeros((), dtype=torch.int64)}, router=router)
+    res["checkpoint_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, restored = ck.restore({"step": torch.zeros((), dtype=torch.int64)},
+                                router_kw={"device": device,
+                                           "device_claim": True})
+    res["checkpoint_restore_s"] = time.perf_counter() - t0
+    check([int(v) for v in restored.version_vector()] == vec,
+          "restored version vector")
+    check(json.dumps(ShardRouter.comparable(restored.run_all(
+        clock[0], views=restored.snapshot_vector())), sort_keys=True,
+        default=str) == before, "restored merged sweep")
+    restored.close()
+
+    # rebalance: shard 1 claimed dry, then refilled from its siblings
+    sh1 = router.shards[1]
+    drain_calls = 0
+    while int(sh1.wq.ready_counts().sum()):
+        drain_calls += 1
+        got = sh1.wq.claim_all(k=64, now=clock[0])
+        sh1.wq.finish(np.concatenate([v for v in got.values() if len(v)]),
+                      now=clock[0] + 1.0)
+    live = router.live_task_ids()
+    t0 = time.perf_counter()
+    moved = router.rebalance(now=clock[0])
+    res["rebalance_ms"] = (time.perf_counter() - t0) * 1e3
+    check(moved > 0 and int(sh1.wq.ready_counts().sum()) > 0,
+          "rebalance moved nothing into the drained shard")
+    check(np.array_equal(router.live_task_ids(), live),
+          "rebalance changed the live task ids")
+    res["rebalanced_tasks"] = int(moved)
+    router.check_invariants()
+    router.close()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    counts = launch_counts()
+    want = shards * len(wall_ms["device_sharded"]) + drain_calls
+    if on_card:
+        check(counts["wq_claim"] == want,
+              f"wq_claim launches {counts['wq_claim']} != {want} "
+              f"(control plane)")
+    res["launches"] = {"wq_claim": counts["wq_claim"]}
+    res["claim_all_wall_ms"] = wall_ms
+    res["kernel_device_ms"] = claim_all_kernel_ms(
+        tasks // shards, L, device) if on_card else None
+    if train_cfg is not None:
+        res["train"] = _sharded_train(train_cfg, device, seq_len=train_seq_len,
+                                      ckpt_dir=ckpt_dir)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def _sharded_train(cfg, device, *, seq_len, ckpt_dir) -> dict:
+    """The control-plane phase's train run (:func:`phase_control_plane`)."""
+    from repro_torch.checkpoint import Checkpointer
+    on_card = torch.device(device).type == "cuda"
+    batch, steps = SHARDED_TRAIN_BATCH, SHARDED_TRAIN_STEPS
+    ck = Checkpointer(ckpt_dir, keep=1)
+    with device_claims(True):
+        ex = TrainExecutor(cfg, num_workers=4, shards=2, analyst="remote",
+                           steer_every=2, checkpointer=ck,
+                           checkpoint_every=3,
+                           data_cfg=DataConfig(vocab_size=cfg.vocab_size,
+                                               seq_len=seq_len,
+                                               batch_size=batch),
+                           device=device)
+    launches = {"want": 0}
+    _count_claim_launches(ex.router, launches)
+    ex.submit_steps(steps)
+    sync(ex.device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    while ex.step < 3:
+        ex.tick()
+    ex.fail_shard(1)
+    t1 = time.perf_counter()
+    wq1 = ex.promote_shard(1)
+    promote_s = time.perf_counter() - t1
+    check(wq1.device_claim and str(wq1.device) == str(ex.device),
+          "the promoted train shard does not claim on the device")
+    hist = ex.run()
+    sync(ex.device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    ck.wait()
+    losses = [h["loss"] for h in hist]
+    shards_ = ex.router.shards
+    finished = sum(int(sh.wq.counts()["FINISHED"]) for sh in shards_)
+    check(len(hist) == steps == finished and ex.router.tasks_left() == 0,
+          f"sharded train finished {finished} of {steps}")
+    check(bool(np.isfinite(losses).all()), f"losses {losses}")
+    out0 = np.concatenate([sh.wq.store.col("out0")[
+        sh.wq.store.col("status") == int(Status.FINISHED)] for sh in shards_])
+    check(np.array_equal(np.sort(out0), np.sort(losses)),
+          f"store out0 {out0} != history losses {losses}")
+    check(ex.last_steering is not None
+          and isinstance(ex.last_steering["version"], list),
+          "no scatter-gather sweep ran")
+    check(ck.latest_step() == steps, f"checkpoint {ck.latest_step()}")
+    want = train_launches(cfg, steps, 0)
+    want["wq_claim"] = launches["want"]
+    if on_card:
+        for k, n in counts.items():
+            check(n == want.get(k, 0),
+                  f"{k} launches {n} != {want.get(k, 0)} (sharded train)")
+    ex.close()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"arch": cfg.name, "layers": cfg.num_layers, "shards": 2,
+            "workers": 4, "analyst": "remote", "seq_len": seq_len,
+            "batch": batch, "steps": steps, "losses": losses,
+            "failed_and_promoted_shard": 1, "promote_s": promote_s,
+            "wall_s": wall, "launches": {k: counts[k] for k in want}}
+
+
 # --------------------------------------------------------------- phase 4
 _FLUSH = []
 
@@ -1819,6 +2168,20 @@ def _earlier_rows(dev, rng, cfg, scfg, hcfg) -> list:
     return rows
 
 
+def _control_plane_rows(dev, rng, cfg) -> list:
+    """The control-plane phase's shapes: the claim kernel at one shard's
+    queue (N 25,000, W 234) and at the sharded train run's (a shard's 4
+    tasks, 2 workers), and flash forward with LSE and backward at that
+    run's batch of 2 x 2048."""
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return [{**_claim_case(dev, 25_000, 234, 1, rng), "arch": CONTROL_PLANE},
+            {**_claim_case(dev, 4, 2, 1, rng), "arch": SHARDED_TRAIN},
+            _flash_case(dev, 2048, hq, hkv, dh, torch.bfloat16, rng,
+                        arch=SHARDED_TRAIN, b=2, lse=True),
+            _flash_bwd_case(dev, 2, 2048, hq, hkv, dh, torch.bfloat16, rng,
+                            arch=SHARDED_TRAIN)]
+
+
 def phase_kernels(cfg, scfg, hcfg, fams, device, launches: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes
     (``cfg`` the dense model, ``scfg`` the SSM model, ``hcfg`` the hybrid,
@@ -1829,6 +2192,7 @@ def phase_kernels(cfg, scfg, hcfg, fams, device, launches: dict) -> dict:
     dev = torch.device(device)
     rng = np.random.default_rng(0)
     rows = _earlier_rows(dev, rng, cfg, scfg, hcfg)
+    rows += _control_plane_rows(dev, rng, cfg)
     extra = _family_rows(dev, rng, fams)
     for r in rows + [r for r, _, _ in extra]:
         emit(r)
@@ -1868,7 +2232,13 @@ def kernels_line(cfg, scfg, hcfg, fams, rows, extra, launches) -> dict:
         ("rglru_scan", h_train, lambda r: r["case"] == "train"),
         ("rglru_scan_bwd", h_train, lambda r: r["case"] == "train"),
         ("flash_attention", h_train, lambda r: r["arch"] == h_train),
-        ("flash_attention_bwd", h_train, lambda r: r["arch"] == h_train)]
+        ("flash_attention_bwd", h_train, lambda r: r["arch"] == h_train),
+        ("wq_claim", CONTROL_PLANE, lambda r: r.get("arch") == CONTROL_PLANE),
+        ("wq_claim", SHARDED_TRAIN, lambda r: r.get("arch") == SHARDED_TRAIN),
+        ("flash_attention", SHARDED_TRAIN,
+         lambda r: r["arch"] == SHARDED_TRAIN),
+        ("flash_attention_bwd", SHARDED_TRAIN,
+         lambda r: r["arch"] == SHARDED_TRAIN)]
     # the MoE, VLM and enc-dec train runs' queue is qwen2's (6 tasks, 2
     # workers)
     main_shape += [("wq_claim", f"{c.name} train",
@@ -2041,6 +2411,11 @@ def main() -> int:
     _free()
     phase_family_check(ecfg, dev, prompt_len=16, frames=1000)
     launches[None] = phase_claim(dev)["launches"]
+    cp = phase_control_plane(dev, train_cfg=cfg)
+    launches[CONTROL_PLANE] = cp["launches"]
+    launches[SHARDED_TRAIN] = cp["train"]["launches"]
+    del cp
+    _free()
     train = phase_train(cfg, dev)
     launches[f"{cfg.name} train"] = train["result"]["launches"]
     phase_train_profile(train["executor"])

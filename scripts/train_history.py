@@ -6,7 +6,7 @@ step's loss and grad norm on both, and their gap.
 
     python scripts/train_history.py [--arch mamba2-1.3b] [--layers 2]
         [--batch 2] [--seq-len 512] [--steps 6] [--lrs 3e-4,3e-3]
-        [--seed 0]
+        [--seed 0] [--dtype float32]
 
 A second reading of a card train run's loss history: each step is the
 executor's (``make_train_step`` at a fixed lr, the batch of shard ``step``
@@ -14,8 +14,11 @@ as ``TrainExecutor`` draws it). Where the card's losses rise and fall as
 the CPU's do, the shape of the history comes from the optimizer and its
 settings, not from the kernels. The default S 512 gives mamba2's SSD scan
 two chunks of 256, so the terms carried across chunks run in both
-directions. Prints one JSON line per lr and step, and a last line with
-the card's name and the largest gaps. Needs a CUDA card.
+directions. ``--dtype`` sets the config's compute dtype (bf16 unless
+given): in float32 both devices round alike up to the order of their
+sums, so a gap that still grows with depth and steps there is the
+kernels', not bf16's. Prints one JSON line per lr and step, and a last
+line with the card's name and the largest gaps. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -71,13 +74,16 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--lrs", default="3e-4,3e-3")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default=None,
+                    help="compute dtype (default: the config's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_history.py needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = get_config(args.arch)
-    cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = dataclasses.replace(cfg, num_layers=args.layers,
+                              dtype=args.dtype or cfg.dtype)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       batch_size=args.batch)
     gaps = {}

@@ -6,11 +6,16 @@ Layout (one directory per step):
     manifest.json      step, leaf index, content hashes, wall time
     arrays.npz         flattened train-state leaves (path-keyed)
     store.npz          column store snapshot + txn-log offset
+    store_<s>.npz      (sharded runs) one store cut per shard; the
+                       manifest carries the full version VECTOR
 
 The tmp+rename protocol makes partially written checkpoints invisible;
 restore picks the newest COMPLETE manifest (torn directories — truncated
 manifest, missing array or store file — are skipped, falling back to the
-previous complete step). Async mode copies the state to the host
+previous complete step). Sharded runs cut one store-lock-consistent
+snapshot per shard and publish them with the version vector in a single
+manifest, so a restore resumes every shard at ``[v0..vN-1]`` or none at
+all: there is no torn vector. Async mode copies the state to the host
 synchronously — a consistent cut — then writes on a daemon thread
 (double-buffered): the card never waits on disk.
 
@@ -18,10 +23,8 @@ The port's train state holds a module of per-layer tensors, so its leaves
 are keyed by the state's path and the module's parameter names
 (``params/layers.0.attn.q.weight``, ``opt/inner/m/layers.0.attn.q.weight``,
 ``opt/step``); bf16 leaves are stored as their 16-bit patterns, with their
-dtype in the manifest. ``store.npz`` is the reference's format, which the
-reference's ``Checkpointer`` reads. Sharded runs (``router=``) need the
-sharding router, which is not ported (ROADMAP Queue 1, the rest of the
-control plane).
+dtype in the manifest. The store files are the reference's format, which
+the reference's ``Checkpointer`` reads, sharded or not.
 """
 from __future__ import annotations
 
@@ -41,9 +44,6 @@ from torch import nn
 
 from repro_torch.core.store import ColumnStore
 from repro_torch.core.workqueue import WorkQueue
-
-ROUTER_ITEM = ("sharded checkpoints need the sharding router: ROADMAP "
-               "Queue 1, the rest of the control plane")
 
 
 def _leaves(tree, prefix=""):
@@ -111,56 +111,68 @@ class Checkpointer:
     # ---------------------------------------------------------------- save
     def save(self, step: int, state: Any, wq: Optional[WorkQueue] = None,
              *, router=None) -> None:
-        """Checkpoint ``state`` plus the store of ``wq`` (single primary;
-        ``router``, a sharded run, raises: not ported)."""
-        if router is not None:
-            raise NotImplementedError(ROUTER_ITEM)
+        """Checkpoint ``state`` plus the store(s): pass ``wq`` for a
+        single-primary run or ``router`` (a ``ShardRouter``) for a sharded
+        run: one snapshot per shard, each cut under that shard's store
+        lock, published with the version vector in the single atomic
+        manifest."""
+        if wq is not None and router is not None:
+            raise ValueError("pass wq or router, not both")
         flat = _flatten(state)                       # consistent host cut
         dtypes = _dtypes(state)
-        store_snap: Optional[dict] = None
+        store_snaps: Optional[List[dict]] = None
         log_acks: List[tuple] = []
-        if wq is not None:
-            with wq.store.txn():  # snapshot + log length: ONE atomic cut
-                snap = wq.store.snapshot()           # (log appends happen
-                log_len = len(wq.log)                # inside this lock)
-            store_snap = {
-                "n_rows": snap["n_rows"], "version": snap["version"],
-                "log_len": log_len, "num_workers": wq.num_workers,
-                **{f"col__{k}": v for k, v in snap["cols"].items()}}
-            # the checkpoint persists the store through log offset log_len;
-            # the consumer registration/ack happens only AFTER the atomic
-            # publish in _write — compaction must never be justified by a
-            # checkpoint that did not become durable
-            log_acks.append((wq.log, log_len))
+        queues = [wq] if wq is not None else \
+            [sh.wq for sh in router.shards] if router is not None else []
+        if queues:
+            store_snaps = []
+            for q in queues:
+                with q.store.txn():  # snapshot + log length: ONE atomic cut
+                    snap = q.store.snapshot()        # (log appends happen
+                    log_len = len(q.log)             # inside this lock)
+                store_snaps.append(
+                    {"n_rows": snap["n_rows"], "version": snap["version"],
+                     "log_len": log_len, "num_workers": q.num_workers,
+                     **{f"col__{k}": v for k, v in snap["cols"].items()}})
+                # the checkpoint persists the store through log offset
+                # log_len; the consumer registration/ack happens only AFTER
+                # the atomic publish in _write — compaction must never be
+                # justified by a checkpoint that did not become durable
+                log_acks.append((q.log, log_len))
         if self._thread is not None:
             self._thread.join()                      # one write in flight
+        sharded = router is not None
         if self.async_write:
             self._thread = threading.Thread(
                 target=self._write,
-                args=(step, flat, dtypes, store_snap, log_acks),
+                args=(step, flat, dtypes, store_snaps, log_acks, sharded),
                 daemon=True)
             self._thread.start()
         else:
-            self._write(step, flat, dtypes, store_snap, log_acks)
+            self._write(step, flat, dtypes, store_snaps, log_acks, sharded)
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
 
-    def _write(self, step: int, flat, dtypes, store_snap, log_acks=()):
+    def _write(self, step: int, flat, dtypes, store_snaps, log_acks=(),
+               sharded: bool = False):
         tmp = self.root / f"step_{step:08d}.tmp"
         final = self.root / f"step_{step:08d}"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         np.savez(tmp / "arrays.npz", **flat)
-        if store_snap is not None:
-            np.savez(tmp / "store.npz",
-                     **{k: v for k, v in store_snap.items()
+        store_files: List[str] = []
+        for i, snap in enumerate(store_snaps or []):
+            name = f"store_{i}.npz" if sharded else "store.npz"
+            store_files.append(name)
+            np.savez(tmp / name,
+                     **{k: v for k, v in snap.items()
                         if isinstance(v, np.ndarray)},
                      __meta__=np.asarray(json.dumps(
-                         {k: int(v) for k, v in store_snap.items()
+                         {k: int(v) for k, v in snap.items()
                           if not isinstance(v, np.ndarray)})))
         manifest = {
             "step": step,
@@ -168,8 +180,15 @@ class Checkpointer:
             "leaves": {k: [list(v.shape), dtypes[k],
                            hashlib.sha1(v.tobytes()).hexdigest()[:16]]
                        for k, v in flat.items()},
-            "has_store": store_snap is not None,
+            "has_store": bool(store_snaps),
         }
+        if sharded:
+            # the version VECTOR and the per-shard files ride ONE manifest:
+            # either every shard's cut becomes restorable together, or (on
+            # a torn write) none does
+            manifest["store_files"] = store_files
+            manifest["version_vector"] = [int(s["version"])
+                                          for s in store_snaps or []]
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if final.exists():                           # re-save of same step
             shutil.rmtree(final)
@@ -215,9 +234,13 @@ class Checkpointer:
                 ) -> Tuple[int, Any, object]:
         """Restore the newest COMPLETE checkpoint (or ``step``) into a new
         state shaped like ``state_template`` (on its devices). Returns
-        ``(step, state, wq)``; a sharded checkpoint raises (not ported)."""
-        if router_kw is not None:
-            raise NotImplementedError(ROUTER_ITEM)
+        ``(step, state, wq_or_router)``: a ``WorkQueue`` for a
+        single-primary checkpoint, a ``ShardRouter`` for a sharded one
+        (rebuilt shard by shard: stores, log offsets and compaction
+        horizons pinned at the persisted version vector, the
+        ``checkpointer`` consumer re-registered per shard, replicators and
+        the claim device from ``router_kw``, e.g. ``{"replicate": "delta",
+        "device": "cpu"}``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -236,14 +259,27 @@ class Checkpointer:
         if not manifest.get("has_store"):
             return step, state, None
         if manifest.get("store_files"):              # sharded checkpoint
-            raise NotImplementedError(ROUTER_ITEM)
+            from repro_torch.core.sharding_router import ShardRouter
+            shard_states = [self._load_store(d / f)
+                            for f in manifest["store_files"]]
+            router = ShardRouter.from_checkpoint(shard_states,
+                                                 **(router_kw or {}))
+            for sh, (_, meta) in zip(router.shards, shard_states):
+                # the checkpoint IS this log's consumer floor: re-register
+                # it at the resumed base so compaction never outruns the
+                # next durable save
+                sh.wq.log.register_consumer("checkpointer",
+                                            int(meta["log_len"]))
+            return step, state, router
         store, meta = self._load_store(d / "store.npz")
         wq = WorkQueue(meta["num_workers"], store=store)
         wq._next_task_id = int(store.col("task_id").max() + 1) \
             if store.n_rows else 0
         # the pre-crash log records are gone: resume absolute offsets at
         # the persisted log length and put the compaction horizon at the
-        # checkpoint version, so consumer offsets stay meaningful
+        # checkpoint version, so consumer offsets stay meaningful and
+        # time-travel below the checkpoint raises LogCompactedError
+        # instead of silently replaying an empty delta
         if meta.get("log_len"):
             wq.log.base = int(meta["log_len"])
             wq.log.horizon_version = int(meta["version"])

@@ -14,9 +14,6 @@ the LIVE store (reading their predicates live too), never a snapshot.
 
 ``device_monitor`` runs the same reductions with torch on a device mirror
 of the columns.
-
-Time travel (``at_version``) needs the replication module's ``replay`` and
-comes with the port of that module.
 """
 from __future__ import annotations
 
@@ -26,7 +23,6 @@ import time
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
-import torch
 
 from repro_torch.core.schema import Status
 from repro_torch.core.store import SnapshotView
@@ -163,6 +159,54 @@ class SteeringEngine:
             yield self._tls.view
         finally:
             self._tls.view = prev
+
+    # ---------------------------------------------------------- time travel
+    def at_version(self, version: int,
+                   base: Optional[SnapshotView] = None) -> SnapshotView:
+        """Pin a sweep to ANY historical committed version.
+
+        Rebuilds an immutable view of the store as of ``version`` by
+        snapshot-restore + bounded txn-log replay: start from ``base`` (any
+        snapshot at a version <= the target; an empty store when omitted) and
+        replay exactly the log records in ``(base.version, version]`` — the
+        two boundaries are bisected, the replay is O(delta). Pass the result
+        as ``run_all(now, view=...)`` (or to ``snapshot_scope``) to run the
+        whole Q1-Q7 sweep against history.
+
+        Requires every mutation since ``base`` to have gone through the
+        logged WorkQueue/steering API (true for the executor and simkit
+        paths); raw ``store.update`` calls are invisible to the log and
+        cannot be time-traveled. Once ``TxnLog.truncate`` has compacted the
+        consumed prefix, genesis replay degrades to "since the last
+        checkpoint": pass a ``base`` snapshot at or after the log's
+        compaction horizon (e.g. the checkpointed store) or this raises
+        :class:`~repro_torch.core.transactions.LogCompactedError`.
+        """
+        from repro_torch.core.replication import replay
+        from repro_torch.core.transactions import LogCompactedError
+        live = self.wq.store
+        if version > live.version:
+            raise ValueError(f"version {version} is in the future "
+                             f"(live store is at {live.version})")
+        if base is not None and base.version > version:
+            raise ValueError(f"base snapshot v{base.version} is newer than "
+                             f"target v{version}")
+        if base is None:
+            store = type(live)(live.schema, capacity=1 << 10)
+            after = store.version            # 0: replay the log from genesis
+        else:
+            store = type(live).from_view(base, live.schema)
+            after = base.version
+        try:
+            delta = self.wq.log.records_between(after, version)
+        except LogCompactedError as e:
+            raise LogCompactedError(
+                f"cannot time-travel to v{version} from "
+                f"{'genesis' if base is None else f'base v{base.version}'}: "
+                f"{e}") from None
+        replay(store, delta)
+        store.set_version(version)
+        return store.snapshot_view()
 
     # Q1: per-node task status counts within the last minute
     def q1_recent_status_by_node(self, now: float, horizon: float = 60.0
@@ -328,6 +372,7 @@ class SteeringEngine:
         on-device analytics see the same version as the host queries. It
         lives on the queue's device; times stay float64.
         """
+        import torch
         dv = self._store().device_view(["status", "worker_id", "start_time",
                                         "end_time"], device=self.wq.device)
         st = dv["status"]

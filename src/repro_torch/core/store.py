@@ -28,10 +28,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from repro_torch.core.schema import Column, Status, wq_schema
-from repro_torch.device import resolve_device
 
 # Default claim-lease duration (seconds). Lives on the store (not the
 # WorkQueue) so replicas restored from a snapshot derive the SAME
@@ -50,9 +48,13 @@ def _build_id_index(tid: np.ndarray) -> np.ndarray:
 
 
 def _device_view(source, names: Sequence[str], device
-                 ) -> Dict[str, torch.Tensor]:
+                 ) -> Dict[str, "torch.Tensor"]:
     """Copy the named columns of a store or view to ``device`` (dtype kept:
-    int32 status/worker ids, float64 times)."""
+    int32 status/worker ids, float64 times). torch is imported here, not
+    with the module: a replica process holds stores and never a tensor."""
+    import torch
+
+    from repro_torch.device import resolve_device
     dev = resolve_device(device)
     return {n: torch.tensor(source.col(n), device=dev) for n in names}
 

@@ -31,14 +31,11 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.partition import assign_workers, partition_sizes, rehash
 from repro_torch.core.schema import LEGAL_TRANSITIONS, Status
 from repro_torch.core.store import ColumnStore
 from repro_torch.core.transactions import TxnLog
-from repro_torch.device import resolve_device
-from repro_torch.kernels.wq_claim.ops import wq_claim_columns
 
 
 class WorkQueue:
@@ -60,9 +57,13 @@ class WorkQueue:
             device_claim = wq_device_claim()
         self.device_claim = bool(device_claim)
         # where the device claim runs; a queue that claims on the device
-        # checks the device up front instead of at its first claim
-        self.device = resolve_device(device) if self.device_claim \
-            else torch.device(device)
+        # checks the device up front instead of at its first claim. torch
+        # is imported only on that path: a queue that claims on the host (a
+        # replica's, in its own process) never loads it
+        if self.device_claim:
+            from repro_torch.device import resolve_device
+            device = resolve_device(device)
+        self.device = device
         # ready cursor per partition: no READY row of partition w exists at a
         # row index < _cursor[w]. Claims advance it; any transition that can
         # re-create READY rows at lower indices lowers it again.
@@ -83,7 +84,9 @@ class WorkQueue:
 
     _NO_ORPHANS = np.iinfo(np.int64).max
 
-    def _scan_start(self) -> int:
+    def scan_start(self) -> int:
+        """First row the next claim scans: no claimable row lies before
+        it, and a device claim launches only when rows lie past it."""
         return int(min(self._cursor.min(), self._orphan_lo))
 
     # --------------------------------------------------------- ready counts
@@ -324,7 +327,7 @@ class WorkQueue:
             return {w: np.empty(0, np.int64) for w in range(W)}
         with self.store.txn():
             n = self.store.n_rows
-            start = self._scan_start()
+            start = self.scan_start()
             if self.device_claim:
                 claimed, n_claimed, pool = self._primary_device(start, k)
             else:
@@ -524,6 +527,8 @@ class WorkQueue:
         data-parallel pass; the host applies the resulting mask to the
         authoritative store (stealing stays host-side).
         """
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels.wq_claim.ops import wq_claim_columns
         status = self.store.col("status")[start:]
         wid_full = self.store.col("worker_id")
         claim_mask, new_status = wq_claim_columns(

@@ -10,9 +10,11 @@ sweeps run on store snapshots on an analyst thread meanwhile. The loop is
 the reference's (``repro/runtime/executor.py``); on a CUDA device every
 family runs attention and the SSD and RG-LRU scans forward and backward in
 the hand-written kernels (the MoE experts' products in torch, as the
-reference computes them in XLA). The replica / remote analysts and the sharded topology need
-the replication and sharding modules (ROADMAP Queue 1, the rest of the
-control plane) and raise.
+reference computes them in XLA). Sweeps read COW snapshots of the live
+store (``analyst="snapshot"``), an in-process delta replica
+(``"replica"``) or replica processes fed over the wire (``"remote"``);
+``shards > 1`` splits the workers across full primaries behind a
+``ShardRouter`` whose every shard queue claims on the executor's device.
 
 ServeExecutor — continuous batching: requests are WQ rows; decode slots claim
 requests from their partition; per-token progress/results are store updates.
@@ -38,18 +40,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.risers_workflow import WorkflowConfig
+from repro_torch.core.replication import make_replicator
+from repro_torch.core.sharding_router import ShardRouter
 from repro_torch.core.steering import SteeringEngine
 from repro_torch.core.supervisor import SecondarySupervisor, Supervisor
 from repro_torch.core.workqueue import WorkQueue
 from repro_torch.data.pipeline import DataConfig, batch_for
 from repro_torch.device import resolve_device
+from repro_torch.flags import wq_device_claim
 from repro_torch.launch.steps import (cast_params, init_train_state,
                                       make_prefill_step, make_serve_step,
                                       make_train_step)
 from repro_torch.models.registry import build_model
-
-CONTROL_PLANE_ITEM = ("needs the replication and sharding modules: ROADMAP "
-                      "Queue 1, the rest of the control plane")
 
 
 class TrainExecutor:
@@ -61,18 +63,25 @@ class TrainExecutor:
                  base_lr: float = 3e-4, data_cfg: Optional[DataConfig] = None,
                  checkpointer=None, checkpoint_every: int = 50,
                  steer_every: int = 0, seed: int = 0,
-                 analyst: str = "snapshot", shards: int = 1,
-                 lease_s: Optional[float] = None, device="cuda"):
+                 analyst: str = "snapshot", replicas: int = 1,
+                 shards: int = 1, lease_s: Optional[float] = None,
+                 device="cuda"):
+        # shards > 1: num_workers partitions split across `shards` full
+        # primaries behind a ShardRouter; claims, replication and compaction
+        # run per shard, steering is the router's scatter-gather sweep, and
+        # drained shards pull work from rich siblings each tick
         if shards < 1:
             raise ValueError("shards must be >= 1")
-        if shards > 1:
-            raise NotImplementedError(f"shards={shards}: the sharded "
-                                      f"topology {CONTROL_PLANE_ITEM}")
+        if shards > 1 and num_workers % shards:
+            raise ValueError(f"num_workers={num_workers} must divide "
+                             f"evenly across shards={shards}")
+        # analyst="snapshot": sweeps read COW snapshot views of the live
+        # store; "replica": a delta-caught-up replica store fed only by the
+        # txn log; "remote": replicas in separate OS processes fed
+        # wire-encoded deltas, where the sweeps run (``replicas`` > 1 fans
+        # out to an N-member ReplicaGroup)
         if analyst not in ("snapshot", "replica", "remote"):
             raise ValueError(f"unknown analyst mode {analyst!r}")
-        if analyst != "snapshot":
-            raise NotImplementedError(f"analyst={analyst!r} "
-                                      f"{CONTROL_PLANE_ITEM}")
         self.cfg = cfg
         self.num_workers = num_workers
         self.base_lr = base_lr
@@ -81,12 +90,34 @@ class TrainExecutor:
         self.device = resolve_device(device)
         self.workflow = WorkflowConfig(name="train-sweep",
                                        activities=("train_step",))
-        self.wq = WorkQueue(num_workers=num_workers, lease_s=lease_s,
-                            device=self.device)
-        self.supervisor = Supervisor(self.wq, self.workflow)
-        self.secondary = SecondarySupervisor(self.supervisor)
-        self.steering = SteeringEngine(self.wq)
+        self.router: Optional[ShardRouter] = None
         self.analyst = analyst
+        self.replicas = replicas
+        self.replica = None
+        if shards > 1:
+            # every shard queue claims on this device, with the device
+            # claim flag sampled here, so a promoted shard claims as its
+            # siblings do; each shard gets a Supervisor +
+            # SecondarySupervisor so expansion state survives a
+            # promote_shard
+            self.router = ShardRouter(
+                shards, num_workers // shards,
+                replicate=None if analyst == "snapshot" else analyst,
+                replicas=replicas, lease_s=lease_s,
+                device_claim=wq_device_claim(), device=self.device)
+            self.router.attach_supervision(self.workflow)
+            self._adopt_router(self.router)
+        else:
+            self.wq = WorkQueue(num_workers=num_workers, lease_s=lease_s,
+                                device=self.device)
+            self._adopt_queue(self.wq)
+            if analyst != "snapshot":
+                # "replica": the in-process delta arm (nothing ships, so
+                # the wire-size accounting is skipped); "remote": a
+                # pipelined replica group fed over the wire
+                self.replica = make_replicator(
+                    self.wq, analyst, replicas=replicas,
+                    account_encoded=False)
         self.checkpointer = checkpointer
         self.checkpoint_every = checkpoint_every
         self.steer_every = steer_every
@@ -103,19 +134,48 @@ class TrainExecutor:
         self.reaped_total = 0
         self.history: List[Dict[str, float]] = []
 
-    def resume(self, step: int, state: Dict[str, Any],
-               wq: Optional[WorkQueue]) -> None:
+    def _adopt_queue(self, wq: WorkQueue) -> None:
+        """Drive ``wq``: the supervisor, its shadow and the steering engine
+        read it."""
+        self.wq = wq
+        self.supervisor = Supervisor(wq, self.workflow)
+        self.secondary = SecondarySupervisor(self.supervisor)
+        self.steering = SteeringEngine(wq)
+
+    def _adopt_router(self, router: ShardRouter) -> None:
+        """Drive ``router``: supervision is per shard, steering the
+        router's sweep; ``self.wq`` is shard 0's queue (a primary
+        handle)."""
+        self.router = router
+        self.wq = router.shards[0].wq
+        self.supervisor = self.secondary = self.steering = None
+
+    def resume(self, step: int, state: Dict[str, Any], wq) -> None:
         """Continue from a checkpoint (``Checkpointer.restore``): its state
-        and step, and its queue when it has one, which the supervisor, its
-        shadow and the steering engine then read. The reference's
+        and step, and its queue (a ``WorkQueue``) or router (a sharded
+        checkpoint's ``ShardRouter``) when it has one, which the
+        supervisors and the steering then read. The reference's
         ``launch/train.py`` swaps only the queue, so its steering keeps
-        reading the old one and ``run`` stops at once."""
+        reading the old one and ``run`` stops at once. A sharded
+        executor takes only a router, an unsharded one only a queue."""
+        if wq is not None and isinstance(wq, ShardRouter) != (
+                self.router is not None):
+            raise ValueError(
+                f"cannot resume a {'sharded' if self.router else 'unsharded'}"
+                f" executor from a {type(wq).__name__} checkpoint")
         self.state, self.step = state, step
-        if wq is not None:
-            self.wq = wq
-            self.supervisor = Supervisor(wq, self.workflow)
-            self.secondary = SecondarySupervisor(self.supervisor)
-            self.steering = SteeringEngine(wq)
+        if isinstance(wq, ShardRouter):
+            if self.router is not None:
+                self.router.close()
+            wq.attach_supervision(self.workflow)
+            self._adopt_router(wq)
+        elif wq is not None:
+            if self.replica is not None:
+                self.replica.close()
+                self.replica = make_replicator(
+                    wq, self.analyst, replicas=self.replicas,
+                    account_encoded=False)
+            self._adopt_queue(wq)
 
     # ------------------------------------------------------------- seeding
     def submit_steps(self, n: int, *, lr_scale: float = 1.0,
@@ -125,17 +185,32 @@ class TrainExecutor:
             np.arange(self.step, self.step + n) % (1 << 20),
             np.full(n, sweep_id),
         ], axis=1)
+        if self.router is not None:
+            return self.router.add_tasks(0, n, domain_in=dom,
+                                         now=time.time())
         return self.wq.add_tasks(0, n, domain_in=dom, now=time.time())
 
     # ---------------------------------------------------------------- tick
     def tick(self) -> Dict[str, float]:
         """One scheduler tick: claim -> execute -> commit provenance."""
-        claims = self.wq.claim_all(k=1, now=time.time()).values()
+        now = time.time()
+        if self.router is not None:
+            # any drained shard refills from the richest sibling BEFORE
+            # claiming: the cross-shard stealing path
+            if (self.router.ready_counts()
+                    .reshape(self.router.num_shards, -1).sum(1) == 0).any():
+                self.router.rebalance(now=now)
+            claims = [(self.router.shards[s].wq, rows)
+                      for s, rows in self.router.claim_all(
+                          k=1, now=now).values()]
+        else:
+            claims = [(self.wq, rows)
+                      for rows in self.wq.claim_all(k=1, now=now).values()]
         metrics_out: Dict[str, float] = {}
-        for rows in claims:
+        for wq, rows in claims:
             for row in rows:
-                lr_scale = self.wq.store.col("in0")[row]
-                shard = int(self.wq.store.col("in1")[row])
+                lr_scale = wq.store.col("in0")[row]
+                shard = int(wq.store.col("in1")[row])
                 batch = {k: torch.as_tensor(v, device=self.device)
                          for k, v in batch_for(self.cfg, self.data_cfg,
                                                shard).items()}
@@ -145,8 +220,8 @@ class TrainExecutor:
                 loss = float(metrics["loss"])
                 gnorm = float(metrics["grad_norm"])
                 dt_s = time.time() - t0
-                self.wq.finish(np.asarray([row]), now=time.time(),
-                               domain_out=np.asarray([[loss, gnorm, dt_s]]))
+                wq.finish(np.asarray([row]), now=time.time(),
+                          domain_out=np.asarray([[loss, gnorm, dt_s]]))
                 self.step += 1
                 rec = {"step": self.step, "loss": loss, "grad_norm": gnorm,
                        "s_per_step": dt_s}
@@ -154,7 +229,12 @@ class TrainExecutor:
                 metrics_out = rec
         if self.checkpointer and self.checkpoint_every \
                 and self.step and self.step % self.checkpoint_every == 0:
-            self.checkpointer.save(self.step, self.state, self.wq)
+            if self.router is not None:
+                self.router.sync_secondaries()
+                self.checkpointer.save(self.step, self.state,
+                                       router=self.router)
+            else:
+                self.checkpointer.save(self.step, self.state, self.wq)
             self._maybe_compact_log()
         if self._steer_future is not None and self._steer_future.done():
             self.last_steering = self._steer_future.result()
@@ -164,24 +244,68 @@ class TrainExecutor:
                 and self._steer_future is None:
             # the steering tick doubles as the lease sweep: requeue every
             # expired RUNNING claim before analyzing, so the sweep sees the
-            # recovered backlog; the sweep reads a COW view of the live
-            # store at this tick's commits while the next ticks claim
+            # recovered backlog (sharded runs reap per shard and the
+            # reclaimed rows feed rebalance)
             self.reaped_total += self.reap(now=time.time())
-            self._steer_future = self._steer_pool.submit(
-                self.steering.run_all, time.time(),
-                self.wq.store.snapshot_view())
+            if self.router is not None:
+                self._steer_future = self._submit_sharded_sweep()
+                return metrics_out
+            if self.replica is not None:
+                # catch the replica up to this tick's commits (a wire ship
+                # for "remote", in-process log replay for "replica"); the
+                # sync acked the replica's consumer offset, so compaction
+                # follows once a durable checkpoint anchors history
+                self.replica.sync()
+                self._maybe_compact_log()
+            if self.analyst == "remote":
+                # the sweep runs IN the replica process: the analyst
+                # thread only waits on the result pipe
+                self._steer_future = self._steer_pool.submit(
+                    self.replica.remote_sweep, time.time())
+            else:
+                # replica: sweep the caught-up shadow store; snapshot: a
+                # COW view of the live store at this tick's commits, read
+                # while the next ticks claim
+                view = self.replica.snapshot_view() \
+                    if self.replica is not None \
+                    else self.wq.store.snapshot_view()
+                self._steer_future = self._steer_pool.submit(
+                    self.steering.run_all, time.time(), view)
         return metrics_out
+
+    def _submit_sharded_sweep(self) -> concurrent.futures.Future:
+        """The router's scatter-gather sweep, pinned at one version vector
+        on THIS thread (at this tick's commits) and merged on the analyst
+        thread; "remote" settles every shard's replica at the vector here
+        and runs the partial sweeps inside the replica processes."""
+        if self.analyst == "remote":
+            vec = self.router.sync_replicas()
+            return self._steer_pool.submit(
+                self.router.remote_sweep, time.time(), versions=vec,
+                sync=False)
+        views = (self.router.replica_vector() if self.analyst == "replica"
+                 else self.router.snapshot_vector())
+        return self._steer_pool.submit(self.router.run_all, time.time(),
+                                       views)
 
     def _maybe_compact_log(self) -> None:
         """Compact the txn log only once a DURABLE checkpoint has acked an
-        offset: truncation is then 'since last checkpoint' by construction.
+        offset: truncation is then 'since last checkpoint' by construction,
+        so ``SteeringEngine.at_version`` keeps its base-snapshot path.
         Without a checkpoint consumer the log is left whole."""
+        if self.router is not None:
+            for sh in self.router.shards:
+                if sh.alive and sh.wq.log.has_consumer("checkpointer"):
+                    sh.wq.compact_log()
+            return
         if self.wq.log.has_consumer("checkpointer"):
             self.wq.compact_log()
 
     def run(self, max_ticks: int = 10_000) -> List[Dict[str, float]]:
         for _ in range(max_ticks):
-            if self.steering.q4_tasks_left() == 0:
+            left = (self.router.tasks_left() if self.router is not None
+                    else self.steering.q4_tasks_left())
+            if left == 0:
                 break
             self.tick()
         self._drain_steering()
@@ -197,9 +321,14 @@ class TrainExecutor:
                 self.history[-1].setdefault("steering", self.last_steering)
 
     def close(self) -> None:
-        """Release the steering analyst thread (ticks after close raise)."""
+        """Release the steering analyst thread (ticks after close raise),
+        the replicas and the router's steal pipe."""
         self._drain_steering()
         self._steer_pool.shutdown(wait=True)
+        if self.replica is not None:
+            self.replica.close()     # stop pinning the log compaction floor
+        if self.router is not None:
+            self.router.close()      # per-shard replicators + steal pipe
 
     def __del__(self):
         pool = getattr(self, "_steer_pool", None)
@@ -209,22 +338,60 @@ class TrainExecutor:
     # -------------------------------------------------------------- fault
     def reap(self, *, now: Optional[float] = None,
              max_trials: int = 3) -> int:
-        """Requeue expired-lease RUNNING rows (``WorkQueue.reap_expired``).
-        Runs automatically on the steering tick."""
+        """Requeue expired-lease RUNNING rows (``WorkQueue.reap_expired``),
+        across every shard when sharded. Runs automatically on the
+        steering tick."""
         now = time.time() if now is None else now
+        if self.router is not None:
+            return self.router.reap_expired(now=now, max_trials=max_trials)
         return self.wq.reap_expired(now=now, max_trials=max_trials)
 
     def fail_worker(self, worker_id: int) -> int:
-        """Simulate a node failure: requeue its RUNNING tasks elsewhere."""
+        """Simulate a node failure: requeue its RUNNING tasks elsewhere
+        (sharded: within the shard owning that global worker)."""
+        if self.router is not None:
+            L = self.router.workers_per_shard
+            sh = self.router.shards[worker_id // L]
+            return sh.wq.requeue_worker(worker_id % L)
         return self.wq.requeue_worker(worker_id)
 
-    def promote_secondary(self) -> None:
+    def promote_secondary(self, shard: Optional[int] = None) -> None:
         """Fail the supervisor over to its shadow: the promoted supervisor
         gets a bumped generation and resumes expansion exactly via the
-        store's ``expanded`` column."""
+        store's ``expanded`` column. Sharded runs promote per shard
+        (``shard=None``: every shard's secondary)."""
+        if self.router is not None:
+            shards = (range(self.router.num_shards) if shard is None
+                      else [shard])
+            for s in shards:
+                sh = self.router.shards[s]
+                if sh.secondary is None:
+                    raise ValueError(f"shard {s} has no supervision "
+                                     "attached")
+                sh.supervisor.crash()
+                sh.supervisor = sh.secondary.promote()
+                sh.secondary = SecondarySupervisor(sh.supervisor)
+            return
         self.supervisor.crash()
         self.supervisor = self.secondary.promote()
         self.secondary = SecondarySupervisor(self.supervisor)
+
+    def fail_shard(self, shard: int) -> None:
+        """Kill a shard primary mid-run (sharded executors only)."""
+        if self.router is None:
+            raise ValueError("fail_shard requires a sharded executor")
+        self.router.fail_shard(shard)
+
+    def promote_shard(self, shard: int) -> WorkQueue:
+        """Fail a dead shard over onto its most-caught-up replica; the
+        promoted queue claims on the executor's device, and ``self.wq``
+        follows shard 0's."""
+        if self.router is None:
+            raise ValueError("promote_shard requires a sharded executor")
+        wq = self.router.promote_shard(shard)
+        if shard == 0:
+            self.wq = wq
+        return wq
 
 
 class ServeExecutor:

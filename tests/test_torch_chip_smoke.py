@@ -1,5 +1,5 @@
 """Rehearsal of chip_smoke.py on the CPU at smoke size: its serve, serve
-check, claim, train and train check phases run the port's plain versions
+check, claim, control-plane, train and train check phases run the port's plain versions
 here (the kernel phase and the profiles need the card), and main() refuses
 to run without a card."""
 import importlib.util
@@ -146,6 +146,54 @@ def test_claim_phase_reports_wall_ms_on_cpu(chip_smoke):
     assert sorted(walls) == ["device", "host"]
     assert all(len(v) == 2 * 3 and min(v) > 0 for v in walls.values())
     assert res["kernel_device_ms"] is None
+
+
+def test_control_plane_phase_on_cpu(chip_smoke, tmp_path, capsys):
+    """The control-plane phase at a small size (2,000 tasks, 4 shards of 8
+    workers, every shard claiming through the claim op's plain version;
+    the smoke qwen2 for the sharded train run): every check passes, and
+    the record carries each timing the card fills in."""
+    res = chip_smoke.phase_control_plane(
+        "cpu", tasks=2000, workers_per_shard=8, rounds=2,
+        train_cfg=smoke_config("qwen2-0.5b"), train_seq_len=32,
+        ckpt_dir=str(tmp_path / "ckpt"))
+    assert res["workers"] == 32 and res["tasks_claimed"] > 0
+    assert res["log_records_truncated"] > 0
+    assert res["stranded_claims_requeued"] > 0 and res["rebalanced_tasks"] > 0
+    assert len(res["version_vector"]) == 4
+    walls = res["claim_all_wall_ms"]
+    assert sorted(walls) == ["device_sharded", "host_oracle"]
+    assert len(walls["device_sharded"]) == 2 * 2 + 3
+    for key in ("replica_sync_ms", "remote_sweep_ms", "promote_s",
+                "checkpoint_save_s", "checkpoint_restore_s", "rebalance_ms"):
+        assert res[key] > 0, key
+    assert res["launches"] == {"wq_claim": 0}
+    assert res["kernel_device_ms"] is None
+    train = res["train"]
+    assert train["steps"] == 6 and len(train["losses"]) == 6
+    assert train["launches"] == {"flash_attention": 0,
+                                 "flash_attention_bwd": 0, "wq_claim": 0}
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "control_plane"
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_claim_launch_count_follows_the_scan_start(chip_smoke):
+    """The launches the phase expects of a claim_all: one per live shard
+    that claims on the device and has rows left to scan."""
+    from repro_torch.core import ShardRouter
+    r = ShardRouter(2, 2, device="cpu", device_claim=True)
+    assert chip_smoke._launching_shards(r) == 0          # empty stores
+    r.add_tasks(0, 4, now=0.0)
+    assert chip_smoke._launching_shards(r) == 2
+    box = {"want": 0}
+    chip_smoke._count_claim_launches(r, box)
+    for _ in range(3):
+        r.claim_all(k=1, now=1.0)
+    assert box["want"] == 2 + 2 + 0     # both drained by the second
+    r.fail_shard(1)
+    assert chip_smoke._launching_shards(r) == 0
+    r.close()
 
 
 def test_train_phases_on_cpu(chip_smoke, capsys):
@@ -528,7 +576,13 @@ def test_kernels_line_picks_each_runs_rows(chip_smoke):
             row("rglru_scan", case="main"), row("rglru_scan", case="train"),
             row("rglru_scan_bwd", case="train"),
             row("flash_attention", arch=h_train),
-            row("flash_attention_bwd", arch=h_train)]
+            row("flash_attention_bwd", arch=h_train),
+            row("wq_claim", arch=chip_smoke.CONTROL_PLANE, n=25_000,
+                workers=234, k=1),
+            row("wq_claim", arch=chip_smoke.SHARDED_TRAIN, n=4, workers=2,
+                k=1),
+            row("flash_attention", arch=chip_smoke.SHARDED_TRAIN),
+            row("flash_attention_bwd", arch=chip_smoke.SHARDED_TRAIN)]
     extra = [(row(k, **{x: kw[x] for x in ("arch", "causal") if x in kw}),
               arch, share)
              for k, arch, share, kw in chip_smoke.family_shapes(fams)]
@@ -539,7 +593,10 @@ def test_kernels_line_picks_each_runs_rows(chip_smoke):
                 cfg.name: {"flash_attention": 192, "decode_attention": 5952},
                 hcfg.name: {"flash_attention": 96, "decode_attention": 2976,
                             "rglru_scan": 208},
-                scfg.name: {"ssd_scan": 384}}
+                scfg.name: {"ssd_scan": 384},
+                chip_smoke.CONTROL_PLANE: {"wq_claim": 40},
+                chip_smoke.SHARDED_TRAIN: chip_smoke.train_launches(cfg, 6,
+                                                                    5)}
     for c in fams:
         launches[c.name] = chip_smoke.SERVE_LAUNCHES[c.family](c, 8, 32)
         launches[f"{c.name} train"] = chip_smoke.train_launches(c, 6, 3)
@@ -547,8 +604,16 @@ def test_kernels_line_picks_each_runs_rows(chip_smoke):
                                    launches)["kernels"]
     claim_ms = rows[2]["ms"]
     claims = [e for e in line if e["name"] == "wq_claim"]
-    assert len(claims) == 7
-    assert all(e["ms"] == claim_ms for e in claims if e["arch"])
+    assert len(claims) == 9
+    own = {chip_smoke.CONTROL_PLANE: rows[-4]["ms"],
+           chip_smoke.SHARDED_TRAIN: rows[-3]["ms"]}
+    assert all(e["ms"] == own.get(e["arch"], claim_ms)
+               for e in claims if e["arch"])
+    sharded = {e["name"]: e["ms"] for e in line
+               if e["arch"] == chip_smoke.SHARDED_TRAIN}
+    assert sharded == {"wq_claim": rows[-3]["ms"],
+                       "flash_attention": rows[-2]["ms"],
+                       "flash_attention_bwd": rows[-1]["ms"]}
     by_run = {}
     for e in line:
         by_run[e["name"], e["arch"]] = by_run.get((e["name"], e["arch"]),

@@ -1,6 +1,7 @@
 """The port stands alone: no module of repro_torch (nor chip_smoke.py)
-imports jax or the reference package, and the port serves with jax
-unimportable."""
+imports jax or the reference package, the port serves and trains with jax
+unimportable, and a replica process (and the primary that feeds it) runs
+with jax, the reference package and torch all unimportable."""
 import ast
 import os
 import pathlib
@@ -72,3 +73,44 @@ def test_port_trains_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "trained 2 steps on cpu" in out.stdout
+
+
+def test_port_replica_runs_with_jax_repro_and_torch_blocked(tmp_path):
+    """A ``sitecustomize`` blocks jax, repro and torch in every interpreter
+    started here, so also in the spawned replica processes: a primary
+    with a shipped replica and a two-shard router with remote replicas
+    sync, sweep and promote without any of them."""
+    (tmp_path / "sitecustomize.py").write_text(
+        "import sys\n"
+        "for name in ('jax', 'repro', 'torch'):\n"
+        "    sys.modules[name] = None\n")
+    script = tmp_path / "replica_drill.py"
+    script.write_text(
+        "import numpy as np\n"
+        "from repro_torch.core import ShardRouter, WorkQueue\n"
+        "from repro_torch.core.replication import ShippedDeltaReplicator\n"
+        "if __name__ == '__main__':\n"
+        "    wq = WorkQueue(2, device='cpu')\n"
+        "    rep = ShippedDeltaReplicator(wq)\n"
+        "    wq.add_tasks(0, 8)\n"
+        "    wq.claim_all(k=1, now=1.0)\n"
+        "    rep.sync()\n"
+        "    assert rep.remote_sweep(2.0)['q4'] == 8\n"
+        "    assert rep.promote().counts()['READY'] == 8\n"
+        "    rep.close()\n"
+        "    r = ShardRouter(2, 2, replicate='remote', device='cpu')\n"
+        "    r.add_tasks(0, 16, now=0.0)\n"
+        "    r.claim_all(k=1, now=1.0)\n"
+        "    assert r.remote_sweep(2.0)['q4'] == 16\n"
+        "    r.fail_shard(0)\n"
+        "    r.promote_shard(0)\n"
+        "    r.close()\n"
+        "    import sys\n"
+        "    assert 'torch' not in {k for k, v in sys.modules.items() if v}\n"
+        "    print('replicas ran')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), str(ROOT / "src")]))
+    out = subprocess.run([sys.executable, str(script)], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "replicas ran" in out.stdout

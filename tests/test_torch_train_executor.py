@@ -2,11 +2,13 @@
 executor tests (``tests/test_system.py``) and of its checkpoint and data
 tests (``tests/test_checkpoint_and_data.py``), the 24-step loss history
 held against the reference's executor from the same init, the port's
-``store.npz`` read by the reference's checkpointer, the arms that are not
-ported, and the ``repro_torch.launch.train`` command line; the executor and
-the command line also for the SSM, hybrid, MoE, VLM and enc-dec families,
+``store.npz`` read by the reference's checkpointer, the control-plane
+arms (replica and remote analysts, shards, sharded checkpoints), and the
+``repro_torch.launch.train`` command line; the executor and the command
+line also for the SSM, hybrid, MoE, VLM and enc-dec families,
 and the checkpoint round trip of the MoE, VLM and enc-dec state."""
 import json
+import os
 
 import numpy as np
 import pytest
@@ -307,20 +309,86 @@ def test_reference_reads_the_ports_store(tmp_path):
                               equal_nan=True), name
 
 
-# ------------------------------------------------------ arms not ported
-def test_arms_that_are_not_ported_name_their_roadmap_item(tmp_path):
+# -------------------------------------------- the control-plane arms
+CONTROL_PLANE_ARMS = ["analyst_replica", "analyst_remote", "shards",
+                      "checkpoint_router", "unknown_analyst",
+                      "resume_of_another_kind"]
+
+
+@pytest.mark.parametrize("arm", CONTROL_PLANE_ARMS)
+def test_control_plane_arms_run_on_the_cpu(tmp_path, arm):
+    """Each arm of the executor and the checkpointer that needs the
+    replication and sharding modules runs to its end: the replica analyst
+    (in-process delta replica, its columns the live ones), the remote
+    analyst (a replica process; its sweeps run there), two shards behind
+    the router (scatter-gather sweeps), and the sharded checkpoint saved
+    from and restored into a router; an unknown analyst still raises, and
+    so does a resume from a checkpoint of the other kind (a queue into a
+    sharded executor, a router into an unsharded one)."""
     cfg = smoke_config("qwen2-0.5b")
-    for kw in ({"analyst": "replica"}, {"analyst": "remote"},
-               {"shards": 2, "num_workers": 4}):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            TrainExecutor(cfg, device="cpu", **kw)
-    with pytest.raises(ValueError):
-        TrainExecutor(cfg, device="cpu", analyst="nope")
+    if arm == "unknown_analyst":
+        with pytest.raises(ValueError, match="unknown analyst"):
+            TrainExecutor(cfg, device="cpu", analyst="nope")
+        return
+    if arm == "resume_of_another_kind":
+        from repro_torch.core import ShardRouter
+        sharded = _executor(cfg, shards=2, num_workers=4)
+        single = _executor(cfg)
+        for ex, other in ((sharded, WorkQueue(4, device="cpu")),
+                          (single, ShardRouter(2, 2, device="cpu"))):
+            keep = (ex.router, ex.wq, ex.step)
+            with pytest.raises(ValueError, match="cannot resume"):
+                ex.resume(3, ex.state, other)
+            assert (ex.router, ex.wq, ex.step) == keep
+            if isinstance(other, ShardRouter):
+                other.close()
+            ex.close()
+        return
+    kw = {"analyst_replica": {"analyst": "replica"},
+          "analyst_remote": {"analyst": "remote"},
+          "shards": {"shards": 2, "num_workers": 4},
+          "checkpoint_router": {"shards": 2, "num_workers": 4,
+                                "analyst": "replica"}}[arm]
     ck = Checkpointer(str(tmp_path), async_write=False)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        ck.save(1, _state(cfg), router=object())
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        ck.restore(_state(cfg), router_kw={})
+    ex = _executor(cfg, steer_every=2, checkpointer=ck, checkpoint_every=2,
+                   **kw)
+    ex.submit_steps(4)
+    hist = ex.run()
+    assert len(hist) == 4 and ex.last_steering is not None
+    if ex.router is None:
+        assert ex.wq.counts()["FINISHED"] == 4
+        assert ex.replica.records_applied > 0
+        if arm == "analyst_remote":
+            assert ex.replica.remote_pid != os.getpid()
+        else:
+            view = ex.replica.snapshot_view()
+            for n in ex.wq.store.cols:
+                assert np.array_equal(view.col(n), ex.wq.store.col(n),
+                                      equal_nan=True), n
+    else:
+        assert ex.router.tasks_left() == 0
+        assert isinstance(ex.last_steering["version"], list)
+    ex.close()
+    if arm == "checkpoint_router":
+        step, state, router = ck.restore(_state(cfg, seed=3),
+                                         router_kw={"device": "cpu",
+                                                    "replicate": "delta"})
+        assert step == 4 and router.num_shards == 2
+        assert sum(int(sh.wq.counts()["FINISHED"])
+                   for sh in router.shards) == 4
+        want = _leaves(ex.state)
+        assert all(torch.equal(t, want[k])
+                   for k, t in _leaves(state).items())
+        # a sharded resume drives the restored router
+        ex2 = _executor(cfg, steer_every=2, **kw)
+        ex2.resume(step, state, router)
+        assert ex2.router is router and ex2.wq is router.shards[0].wq
+        ex2.submit_steps(2)
+        assert len(ex2.run()) == 2 and ex2.step == 6
+        assert sum(int(sh.wq.counts()["FINISHED"])
+                   for sh in router.shards) == 6
+        assert router.shards[0].supervisor is not None
+        ex2.close()
 
 
 def test_train_executor_defaults_to_the_card():

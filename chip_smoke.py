@@ -59,6 +59,24 @@ Phases, each printing JSON lines:
      both paths, replica sync, remote sweep and rebalance ms, promote and
      checkpoint seconds, and the kernel's device time at a shard's
      shape (N 25,000, W 234);
+  3c. spmd (``phase_spmd``): granite-moe-3b-a800m at full width, its depth
+     cut to 4 layers, on a ("data", "model") = (2, 2) mesh of 4 ranks (one
+     a card over NCCL where there are 4 cards; else 4 processes sharing the
+     card over gloo), under the full config's rules (TP + EP + FSDP,
+     ZeRO-1): 3 train steps of 8 x 2048 in its 4 microbatches (finite
+     losses, the same on every rank, exact flash launches per rank at 12/4
+     local heads; s/step, tokens/s, peak memory a rank, the collectives'
+     host time in the last step's profile); one fp32 train step of a
+     2-layer cut on the card's mesh against the same mesh on the CPU, the
+     routing pinned (loss, grad norm, every gradient through the first
+     moments, every new param); the sharded serve of 4 requests of 1,000
+     tokens (fp32 masters) and 16 bf16 decode steps (prefill and decode ms,
+     exact launches), held at a capacity factor that drops no token
+     against the unsharded model on the card, all in fp32 (logits, greedy
+     tokens and every routing decision bounded), then as served (the bf16
+     decode's routing bounded by ``SPMD_DECODE_ROUTE_SHARE``); each of
+     the four attention and scan kernels through its ``local_map`` wrapper
+     on the mesh against the same kernel on the whole tensors;
   4. train: ``TrainExecutor`` trains qwen2-0.5b at full width and depth
      (bf16 compute, fp32 master params, remat, AdamW; batch 8 x 2048
      tokens) for 6 store-driven steps claimed by 2 workers through the
@@ -129,6 +147,7 @@ card it refuses to run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import fractions
 import functools
@@ -1381,6 +1400,659 @@ def _sharded_train(cfg, device, *, seq_len, ckpt_dir) -> dict:
             "wall_s": wall, "launches": {k: counts[k] for k in want}}
 
 
+# ------------------------------------------------------------- phase spmd
+# granite-moe-3b-a800m at full width on a ("data", "model") = (2, 2) mesh:
+# one rank per card over NCCL where there are 4 cards, else 4 processes
+# that share the card over gloo (``sharding.init_ranks``); the strategy of
+# the full config (TP + EP + FSDP, ZeRO-1), its depth cut
+SPMD_ARCH = "granite-moe-3b-a800m"
+SPMD_MESH = (2, 2)
+SPMD_LAYERS = 4
+SPMD_BATCH, SPMD_LR = 8, 3e-4           # train: global batch, AdamW's lr
+SPMD_CHECK_LAYERS, SPMD_CHECK_BATCH = 2, 4
+SPMD_REQUESTS = 4
+SPMD_TRAIN = "granite-moe-3b-a800m spmd train"
+SPMD_SERVE = "granite-moe-3b-a800m spmd serve"
+SPMD_TIMEOUT_S = 900
+# the bf16 decode's routing, sharded against unsharded, differs in this
+# share of its decisions at most: the sharded layers sum their partial
+# products across "model" in bf16, one rounding more than one device's
+# GEMM, which moves the router's near-even choices of random weights
+# (67 of 256 on an H100, against 0 of 256 in the check's fp32 pass); a
+# fault in one layer's routing or dispatch reroutes the tokens of every
+# layer after it (3 of the 4 layers' decisions)
+SPMD_DECODE_ROUTE_SHARE = 0.5
+
+
+@contextlib.contextmanager
+def capacity_factor(cf: float):
+    """Every MoE dispatch of the block at capacity factor ``cf``: the
+    dispatch functions' default, which the model's calls take (the
+    reference's tests set it so)."""
+    from repro_torch.models import moe as M
+    fns = (M.moe_ffn_sort, M.moe_ffn_ep)
+    old = [f.__defaults__ for f in fns]
+    for f in fns:
+        f.__defaults__ = (cf,)
+    try:
+        yield
+    finally:
+        for f, d in zip(fns, old):
+            f.__defaults__ = d
+
+
+def spmd_cf_all(cfg) -> float:
+    """The least capacity factor at which no token is dropped: each expert's
+    capacity is then all the tokens (a token takes an expert once). The
+    serve check holds the sharded decode against the unsharded one there,
+    where the two compute one function (at the default factor each data
+    shard's capacity is its own tokens', so the shards drop other tokens
+    than one device does)."""
+    return cfg.moe.num_experts / cfg.moe.top_k
+
+
+def spmd_kernel_cases(small: bool) -> list:
+    """The four kernels' cases of the spmd phase's kernels-alone check, one
+    call each: (kernel, arch whose shape it is, shapes). ``small``: the CPU
+    rehearsal's sizes."""
+    s = 64 if small else 1000
+    return [
+        ("flash_attention", "qwen2-0.5b",
+         dict(b=2, s=s, hq=14, hkv=2, dh=64, dtype="float32")),
+        ("decode_attention", "granite-moe-3b-a800m",
+         dict(b=2, smax=s + 24, kv_len=s, hq=24, hkv=8, dh=64,
+              dtype="bfloat16")),
+        ("ssd_scan", "mamba2-1.3b",
+         dict(b=4, s=s, h=8 if small else 64, p=16 if small else 64,
+              n=16 if small else 128, chunk=16 if small else 256)),
+        ("rglru_scan", "recurrentgemma-9b",
+         dict(b=2, s=s, c=64 if small else 4096)),
+    ]
+
+
+def _spmd_kernels_alone(dev, mesh, small: bool) -> list:
+    """Each kernel through its ``local_map`` wrapper on the mesh (inputs
+    replicated, then laid out by the wrapper) against the same kernel on
+    the whole tensors: the largest difference, the limit of the kernel
+    against its plain version, and whether they are bit-identical."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.sharding import from_full, full_tensor
+    from torch.distributed.tensor import Replicate
+    rng = np.random.default_rng(5)
+    rep = [Replicate()] * mesh.ndim
+    out = []
+
+    def t(shape, dtype=torch.float32, scale=1.0):
+        return (torch.as_tensor(rng.standard_normal(shape) * scale,
+                                dtype=torch.float32).to(dtype).to(dev))
+
+    def d(x):
+        return from_full(x, mesh, rep)
+
+    for kernel, arch, sh in spmd_kernel_cases(small):
+        if kernel == "flash_attention":
+            q = t((sh["b"], sh["s"], sh["hq"], sh["dh"]))
+            k, v = (t((sh["b"], sh["s"], sh["hkv"], sh["dh"]))
+                    for _ in range(2))
+            whole = kops.flash_attention(q, k, v, causal=True)
+            got = kops.flash_attention(d(q), d(k), d(v), causal=True)
+            limits = FP32_TOL
+        elif kernel == "decode_attention":
+            bf = torch.bfloat16
+            q = t((sh["b"], 1, sh["hq"], sh["dh"]), bf)
+            k, v = (t((sh["b"], sh["smax"], sh["hkv"], sh["dh"]), bf)
+                    for _ in range(2))
+            n = torch.full((1,), sh["kv_len"], dtype=torch.int32, device=dev)
+            whole = kops.decode_attention(q, k, v, kv_len=n)
+            got = kops.decode_attention(d(q), d(k), d(v), kv_len=n)
+            limits = FP32_TOL
+        elif kernel == "ssd_scan":
+            b, h = sh["b"], sh["h"]
+            x = t((b * h, sh["s"], sh["p"]))
+            bm, cm = (t((b, sh["s"], sh["n"])) for _ in range(2))
+            dt = torch.nn.functional.softplus(t((b * h, sh["s"]))) * 0.1
+            da = -dt * torch.exp(t((b * h, 1), scale=0.5))
+            whole = kops.ssd_scan(x, bm, cm, dt, da, chunk=sh["chunk"],
+                                  heads_per_bc=h)
+            got = kops.ssd_scan(d(x), d(bm), d(cm), d(dt), d(da),
+                                chunk=sh["chunk"], heads_per_bc=h)
+            limits = SSD_REL_TOL
+        else:
+            a = torch.sigmoid(t((sh["b"], sh["s"], sh["c"])))
+            u = t((sh["b"], sh["s"], sh["c"]))
+            whole = kops.rglru_scan(a, u)
+            got = kops.rglru_scan(d(a), d(u))
+            limits = RGLRU_REL_TOL
+        pairs = list(zip(got, whole)) if isinstance(whole, tuple) \
+            else [(got, whole)]
+        errs, same, placed = [], True, []
+        for g, w in pairs:
+            placed.append(str(g.placements))
+            g = full_tensor(g)
+            diff = (g.float() - w.float()).abs()
+            err = float(diff.max())
+            scale = float(w.float().abs().max())
+            tol = limits * (scale if kernel in ("ssd_scan", "rglru_scan")
+                            else 1.0)
+            if w.dtype == torch.bfloat16:
+                tol_t = tol + BF16_STEP * w.float().abs()
+                ok = bool((diff <= tol_t).all())
+            else:
+                ok = err <= tol
+            check(ok, f"{kernel} on the mesh against the whole call: "
+                  f"{err} > {tol}")
+            errs.append(err)
+            same = same and bool(torch.equal(g, w))
+        out.append({"kernel": kernel, "shape_of": arch, **sh,
+                    "placements": placed, "max_abs_err": max(errs),
+                    "bit_identical": same})
+    return out
+
+
+def _spmd_batch(cfg, seq_len, batch, seed):
+    return {k: torch.as_tensor(v) for k, v in batch_for(
+        cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                        batch_size=batch), seed).items()}
+
+
+def _collective_ms(prof) -> dict:
+    """Host milliseconds of the collectives in a profile (self times, so
+    that a collective and the gloo work inside it count once), by name."""
+    keys = ("gloo", "nccl", "c10d", "all_reduce", "allreduce", "all_gather",
+            "allgather", "reduce_scatter", "all_to_all", "alltoall",
+            "wait_tensor")
+    out = {}
+    for evt in prof.key_averages():
+        if any(k in evt.key.lower() for k in keys):
+            out[evt.key] = evt.self_cpu_time_total / 1e3
+    return out
+
+
+def _spmd_train(spec, dev, mesh, rank) -> dict:
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import shardrules as SR
+    full = get_config(SPMD_ARCH)
+    cfg = _spmd_cfg(spec, spec["layers"])
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=spec["seq_len"],
+                                global_batch=SPMD_BATCH)
+    rules = SR.make_rules(full, shape, mesh)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                             rules=rules, device=dev)
+    init_s = time.perf_counter() - t0
+    batch = _spmd_batch(cfg, spec["seq_len"], SPMD_BATCH, 7)
+    step = make_train_step(cfg, rules)
+    heads = set()
+    orig = kops._flash_attention
+
+    def seen(q, k, v, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return orig(q, k, v, **kw)
+    kops._flash_attention = seen
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(spec["steps"]):
+            sync(dev)
+            torch.distributed.barrier()
+            # the last step under the profiler (host activity: each of the
+            # ranks that share the card is its own process): the
+            # collectives' host time
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) \
+                    if i == spec["steps"] - 1 else contextlib.nullcontext() \
+                    as prof:
+                t1 = time.perf_counter()
+                state, met = step(state, batch, {"lr": SPMD_LR})
+                sync(dev)
+            times.append(time.perf_counter() - t1)
+            losses.append(float(met["loss"]))
+        counts = launch_counts()
+    finally:
+        kops._flash_attention = orig
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    check(bool(np.isfinite(losses).all()), f"rank {rank} losses {losses}")
+    want = {k: v for k, v in train_launches(cfg, spec["steps"], 0).items()
+            if k != "wq_claim"}
+    if dev.type == "cuda":
+        for k, n in counts.items():
+            check(n == want.get(k, 0), f"rank {rank}: {k} launches {n} != "
+                  f"{want.get(k, 0)} (spmd train)")
+        local = (cfg.num_heads // SPMD_MESH[1],
+                 cfg.num_kv_heads // SPMD_MESH[1])
+        check(heads == {local}, f"rank {rank}: flash saw heads {heads}, "
+              f"not {local}")
+    coll = _collective_ms(prof)
+    tokens = SPMD_BATCH * spec["seq_len"]
+    del state
+    _free_any(dev)
+    return {"losses": losses, "step_s": times,
+            "s_per_step": float(np.mean(times[1:] or times)),
+            "tokens_per_s": tokens / float(np.mean(times[1:] or times)),
+            "init_s": init_s, "peak_mem_bytes": peak,
+            "launches": {k: counts[k] for k in want},
+            "flash_local_heads": sorted(heads),
+            "profiled_step_s": times[-1],
+            "collective_host_ms": sum(coll.values()),
+            "collectives_top": sorted(coll.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def _spmd_cfg(spec, layers):
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config(SPMD_ARCH) if spec["smoke"] \
+        else get_config(SPMD_ARCH)
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _free_any(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _spmd_train_check(spec, dev, mesh, rank) -> dict:
+    """One train step of a ``SPMD_CHECK_LAYERS`` cut in fp32 with the routing
+    pinned, on the card's mesh against the same (2, 2) run on the CPU over
+    gloo: loss, grad norm, every gradient (through the first moments, 0.1
+    g scaled by the clip on both sides) and every updated parameter, to
+    the train check's limits."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import shardrules as SR
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import full_tensor
+    full = get_config(SPMD_ARCH)
+    c = dataclasses.replace(_spmd_cfg(spec, SPMD_CHECK_LAYERS),
+                            dtype="float32", microbatches=1)
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                seq_len=spec["check_seq"],
+                                global_batch=SPMD_CHECK_BATCH)
+    cpu_mesh = make_mesh(SPMD_MESH, ("data", "model"), "cpu")
+    lr = SPMD_LR
+    runs = {}
+    pin = RoutePin(c)
+    batch = _spmd_batch(c, spec["check_seq"], SPMD_CHECK_BATCH, 3)
+    for mode, m, d in (("record", mesh, dev), ("replay", cpu_mesh,
+                                               torch.device("cpu"))):
+        rules = SR.make_rules(full, shape, m)
+        st = init_train_state(c, torch.Generator().manual_seed(3),
+                              rules=rules, device=d)
+        new, met = pin.run(mode, (st["params"],), make_train_step(c, rules),
+                           st, {k: v.to(d) for k, v in batch.items()},
+                           {"lr": lr})
+        runs[mode] = (
+            float(met["loss"]), float(met["grad_norm"]),
+            {n: full_tensor(p.detach()).cpu()
+             for n, p in new["params"].named_parameters()},
+            {n: full_tensor(t).cpu()
+             for n, t in new["opt"]["inner"]["m"].items()})
+        del st, new
+    pin.check()
+    (l_c, g_c, p_c, m_c), (l_h, g_h, p_h, m_h) = runs["record"], \
+        runs["replay"]
+    check(np.isfinite(l_c) and abs(l_c - l_h) <= TRAIN_LOSS_TOL * abs(l_h),
+          f"spmd train check loss {l_c} vs {l_h}")
+    check(abs(g_c - g_h) <= TRAIN_GNORM_TOL * g_h,
+          f"spmd train check grad norm {g_c} vs {g_h}")
+    grad_err, param_err = {}, {}
+    for n, m in m_h.items():
+        if n.endswith("attn.k.bias"):
+            continue
+        mc = m_c[n]
+        if ".moe." in n and n.rsplit(".", 1)[1] in ("up", "gate", "down"):
+            e = c.moe.num_experts
+            check(not mc[e:].any(), f"a padding expert of {n} has a "
+                  f"gradient")
+            m, mc = m[:e], mc[:e]
+        grad_err[n] = float((mc - m).abs().max()) / float(m.abs().max())
+        check(grad_err[n] <= TRAIN_GRAD_TOL,
+              f"spmd train check gradient {n}: {grad_err[n]} of its largest")
+    for n, p in p_h.items():
+        m = m_h[n]
+        gap = (m_c[n] - m).abs().max()
+        tol = torch.where(m.abs() >= 100 * gap, 1e-2 * lr, 2 * lr)
+        if n.endswith("attn.k.bias"):
+            tol = torch.full_like(m, 2 * lr)
+        diff = (p_c[n] - p).abs()
+        param_err[n] = float((diff / tol).max())
+        check(bool((diff <= tol).all()), f"spmd train check new param {n}: "
+              f"{param_err[n]} of its limit")
+    top = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
+    return {"layers": c.num_layers, "batch": SPMD_CHECK_BATCH,
+            "seq_len": spec["check_seq"], "dtype": "float32",
+            "loss": [l_c, l_h], "grad_norm": [g_c, g_h],
+            "max_grad_err_over_largest": max(grad_err.values()),
+            "grad_err_top": top, "grad_tol": TRAIN_GRAD_TOL,
+            "max_param_err_over_tol": max(param_err.values()),
+            **pin.summary()}
+
+
+def _spmd_serve(spec, dev, mesh, rank) -> dict:
+    """The sharded serve (fp32 masters prefill, bf16 decode through
+    ``make_serve_step(cfg, rules)``), timed; then its checks at
+    :func:`spmd_cf_all`, the sharded run's logits against the unsharded
+    port on the card from the same params (gathered on rank 0), fed the
+    same tokens, its routing pinned to the sharded run's: all in fp32
+    (every routing difference held to ``ROUTE_FLIPS``), then as served
+    (the prefill's held so, the bf16 decode's to
+    ``SPMD_DECODE_ROUTE_SHARE``)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import shardrules as SR
+    from repro_torch.launch.steps import (distribute_params,
+                                          make_prefill_step, make_serve_step)
+    from repro_torch.sharding import full_tensor
+    full = get_config(SPMD_ARCH)
+    cfg = _spmd_cfg(spec, spec["layers"])
+    r, plen, steps = SPMD_REQUESTS, spec["prompt_len"], spec["decode_steps"]
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=plen,
+                                global_batch=r)
+    rules = SR.make_rules(full, shape, mesh)
+    params = distribute_params(
+        cfg, rules, build_model(cfg).init(torch.Generator().manual_seed(0)),
+        dev)
+    dparams = cast_params(params, cfg.dtype)
+    prompts = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (r, plen)).astype(np.int32))
+    max_len = plen + steps + 1
+    prefill = make_prefill_step(cfg, rules, max_len)
+    serve = make_serve_step(cfg, rules)
+    # the serve, timed and counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    torch.distributed.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, {"tokens": prompts.to(dev)})
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, cache, _ = serve(dparams, tok, cache)
+        toks.append(tok)
+    sync(dev)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * steps}
+    if dev.type == "cuda":
+        for k, n in counts.items():
+            check(n == want.get(k, 0), f"rank {rank}: {k} launches {n} != "
+                  f"{want.get(k, 0)} (spmd serve)")
+    del cache
+    out = {"requests": r, "prompt_len": plen, "decode_steps": steps,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": r * 1e3 / decode_ms,
+           "peak_mem_bytes": peak,
+           "launches": {k: counts[k] for k in want},
+           "tokens": torch.cat(toks, 1).cpu().tolist()}
+
+    def gather(t):      # every rank takes part; rank 0 keeps the whole
+        t = full_tensor(t)
+        return t if rank == 0 else t[:0]
+    whole = copy_params(params, gather)
+    whole_d = copy_params(dparams, gather)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    checks = {}
+    with capacity_factor(spmd_cf_all(cfg)):
+        for name, c, sharded, unsharded in (
+                ("fp32", cfg32, (params, params), (whole, whole)),
+                ("served", cfg, (params, dparams), (whole, whole_d))):
+            pin = RoutePin(c)
+            res = _spmd_serve_pair(c, rules, sharded, unsharded, prompts,
+                                   max_len, steps, dev, rank, pin)
+            if res is not None:
+                checks[name] = _spmd_serve_held(name, *res, pin)
+    if rank == 0:
+        out["check"] = dict(checks["served"], capacity_factor=spmd_cf_all(
+            cfg), fp32=checks["fp32"])
+    del params, dparams, whole, whole_d
+    _free_any(dev)
+    return out
+
+
+def _spmd_serve_pair(cfg, rules, sharded, whole, prompts, max_len, steps,
+                     dev, rank, pin):
+    """The sharded model (``sharded``: the params to prefill with, those to
+    decode with) and then, on rank 0, the unsharded one (``whole``), on the
+    same prompts, the unsharded fed the sharded run's greedy tokens and
+    routed as it (``pin``): (the sharded run's logits, the unsharded
+    run's, (routing differences, decisions) of the prefill) on rank 0,
+    None on the others."""
+    from repro_torch.launch.steps import place_inputs
+    from repro_torch.sharding import full_tensor, use_rules
+    model = build_model(cfg)
+
+    def run_sharded():
+        with torch.no_grad(), use_rules(rules):
+            lg, c = model.prefill(sharded[0], place_inputs(
+                cfg, rules, {"tokens": prompts.to(dev)}), max_len)
+            got, fed = [full_tensor(lg[:, -1]).float().cpu()], []
+            for _ in range(steps):
+                t = torch.argmax(got[-1], -1)[:, None].to(torch.int32)
+                fed.append(t)
+                lg, c = model.decode_step(sharded[1], place_inputs(
+                    cfg, rules, {"tokens": t.to(dev)})["tokens"], c)
+                got.append(full_tensor(lg[:, -1]).float().cpu())
+        return got, fed
+
+    prefill_routes = []
+
+    def run_whole(fed):
+        with torch.no_grad():
+            lg, c = model.prefill(whole[0], {"tokens": prompts.to(dev)},
+                                  max_len)
+            prefill_routes.extend((pin.differences, pin.decisions))
+            ref = [lg[:, -1].float().cpu()]
+            for t in fed:
+                lg, c = model.decode_step(whole[1], t.to(dev), c)
+                ref.append(lg[:, -1].float().cpu())
+        return ref
+
+    got, fed = pin.run("record", sharded, run_sharded)
+    res = None
+    if rank == 0:
+        res = got, pin.run("replay", whole, run_whole, fed), prefill_routes
+    torch.distributed.barrier()
+    return res
+
+
+def _spmd_serve_held(name, got, ref, prefill_routes, pin) -> dict:
+    """One serve check's logits (each step to the limit of its dtype),
+    greedy tokens and routing held (see :func:`_spmd_serve`)."""
+    pre_diff, pre_dec = prefill_routes
+    dec_diff, dec_dec = pin.differences - pre_diff, pin.decisions - pre_dec
+    pre_limit = max(ROUTE_FLIPS["min"], ROUTE_FLIPS["share"] * pre_dec)
+    dec_limit = max(ROUTE_FLIPS["min"], ROUTE_FLIPS["share"] * dec_dec) \
+        if name == "fp32" else SPMD_DECODE_ROUTE_SHARE * dec_dec
+    check(pre_diff <= pre_limit, f"spmd serve check ({name}): {pre_diff} of "
+          f"{pre_dec} prefill routing decisions differ (limit {pre_limit})")
+    check(dec_diff <= dec_limit, f"spmd serve check ({name}): {dec_diff} of "
+          f"{dec_dec} decode routing decisions differ (limit {dec_limit})")
+    errs, flips, decisions = [], 0, 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        dt = torch.float32 if i == 0 or name == "fp32" else torch.bfloat16
+        err = float((a - b).abs().max())
+        tol = SERVE_TOL[dt] * max(1.0, float(b.abs().max()))
+        check(bool(torch.isfinite(a).all()), f"non-finite logits at {i}")
+        check(err <= tol, f"spmd serve check ({name}) step {i}: {err} > "
+              f"{tol}")
+        flips += int((a.argmax(-1) != b.argmax(-1)).sum())
+        decisions += a.shape[0]
+        errs.append({"step": i, "dtype": str(dt).replace("torch.", ""),
+                     "max_abs_err": err, "tol": tol})
+    limit = max(ROUTE_FLIPS["min"], ROUTE_FLIPS["share"] * decisions)
+    check(flips <= limit, f"spmd serve check ({name}): {flips} of "
+          f"{decisions} greedy tokens differ (limit {limit})")
+    return {"steps": errs, "token_flips": flips, "token_decisions": decisions,
+            "token_flips_limit": limit,
+            "prefill_route_differences": pre_diff,
+            "prefill_route_decisions": pre_dec,
+            "prefill_route_differences_limit": pre_limit,
+            "decode_route_differences": dec_diff,
+            "decode_route_decisions": dec_dec,
+            "decode_route_differences_limit": dec_limit}
+
+
+def _spmd_rank(rank: int, port: int, spec: dict, out_dir: str) -> None:
+    """One rank of the spmd phase: its results to ``out_dir/rank{r}.json``,
+    or its traceback to ``out_dir/fail{r}.txt``."""
+    import traceback
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.sharding import init_ranks
+        world = SPMD_MESH[0] * SPMD_MESH[1]
+        if spec["device"] == "cpu":
+            torch.set_num_threads(max(1, (os.cpu_count() or 4) // world))
+        dev = init_ranks(rank, world, port, spec["device"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh(SPMD_MESH, ("data", "model"), spec["device"])
+        res = {"rank": rank, "device": str(dev),
+               "backend": torch.distributed.get_backend()}
+        path = os.path.join(out_dir, f"rank{rank}.json")
+        for key, part in (
+                ("train", _spmd_train), ("train_check", _spmd_train_check),
+                ("serve", _spmd_serve),
+                ("kernels_alone", lambda spec, dev, mesh, rank:
+                 _spmd_kernels_alone(dev, mesh, spec["smoke"]))):
+            t0 = time.perf_counter()
+            res[key] = part(spec, dev, mesh, rank)
+            res[key + "_s"] = time.perf_counter() - t0
+            with open(path + ".part", "w") as f:   # what a failure shows
+                json.dump(res, f)
+        torch.distributed.barrier()
+        os.replace(path + ".part", path)
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"fail{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def phase_spmd(device, *, smoke=False, layers=SPMD_LAYERS, steps=3,
+               seq_len=2048, check_seq=256, prompt_len=1000, decode_steps=16,
+               timeout=SPMD_TIMEOUT_S) -> dict:
+    """granite-moe-3b-a800m at full width, its depth cut to ``layers``, on
+    a (2, 2) mesh of 4 ranks (see ``SPMD_MESH``), under the rules of the
+    full config: ``steps`` train steps of ``SPMD_BATCH`` x ``seq_len`` in its
+    microbatches (finite losses, exact flash launches per rank at the
+    local heads); the train check (:func:`_spmd_train_check`); the serve
+    (:func:`_spmd_serve`); each kernel alone through its ``local_map``
+    wrapper (:func:`_spmd_kernels_alone`). A rank that fails or does not
+    finish in ``timeout`` seconds fails the phase. The kernels are built
+    here first (the ranks load what is built). ``smoke``: the smoke config
+    and small kernel cases (the CPU rehearsal)."""
+    import multiprocessing
+    import tempfile
+    from repro_torch.sharding import free_port
+    t_phase = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        library.library()
+    spec = {"device": torch.device(device).type, "smoke": smoke,
+            "layers": layers, "steps": steps, "seq_len": seq_len,
+            "check_seq": check_seq, "prompt_len": prompt_len,
+            "decode_steps": decode_steps}
+    world = SPMD_MESH[0] * SPMD_MESH[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = free_port()
+        procs = [ctx.Process(target=_spmd_rank,
+                             args=(r, port, spec, out_dir))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        t0 = time.monotonic()
+        for p in procs:
+            p.join(max(1.0, timeout - (time.monotonic() - t0)))
+        late = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        fails = sorted(f for f in os.listdir(out_dir) if f.startswith("fail"))
+        for f in sorted(os.listdir(out_dir)):
+            if f.endswith(".part") and (fails or late):
+                with open(os.path.join(out_dir, f)) as fh:
+                    emit({"phase": "spmd_rank_partial", "file": f,
+                          **json.load(fh)})
+        if fails:
+            with open(os.path.join(out_dir, fails[0])) as f:
+                raise AssertionError(f"spmd {fails[0]}:\n{f.read()[-4000:]}")
+        check(not late, f"spmd ranks {late} did not finish in {timeout} s")
+        check(all(p.exitcode == 0 for p in procs),
+              f"spmd rank exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    cfg = _spmd_cfg(spec, layers)
+    for r in ranks:
+        emit({"phase": "spmd_rank", "rank": r["rank"],
+              "device": r["device"], "backend": r["backend"],
+              "train": r["train"], "serve": {
+                  k: v for k, v in r["serve"].items()
+                  if k not in ("tokens", "check")}})
+    tokens = {json.dumps(r["serve"]["tokens"]) for r in ranks}
+    check(len(tokens) == 1, "the ranks served different tokens")
+    losses = {json.dumps(r["train"]["losses"]) for r in ranks}
+    check(len(losses) == 1, "the ranks report different losses")
+    r0 = ranks[0]
+    res = {"phase": "spmd", "arch": SPMD_ARCH, "mesh": dict(zip(
+               ("data", "model"), SPMD_MESH)),
+           "ranks": world, "backend": r0["backend"],
+           "cards": torch.cuda.device_count() if spec["device"] == "cuda"
+           else 0,
+           "strategy": "TP + EP + FSDP, ZeRO-1 (the full config's rules)",
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "reduced": f"depth {get_config(SPMD_ARCH).num_layers} -> {layers} "
+                      f"layers: four ranks share one card's 80 GB",
+           "train": {k: r0["train"][k] for k in (
+               "losses", "s_per_step", "tokens_per_s", "launches",
+               "flash_local_heads", "collective_host_ms",
+               "collectives_top", "profiled_step_s")},
+           "train_peak_mem_bytes": [r["train"]["peak_mem_bytes"]
+                                    for r in ranks],
+           "train_check": r0["train_check"],
+           "serve": {k: r0["serve"][k] for k in (
+               "prefill_ms", "decode_ms_per_step", "decode_tokens_per_s",
+               "launches", "check")},
+           "serve_peak_mem_bytes": [r["serve"]["peak_mem_bytes"]
+                                    for r in ranks],
+           "kernels_alone": r0["kernels_alone"],
+           "part_seconds": {k: r0[k + "_s"] for k in (
+               "train", "train_check", "serve", "kernels_alone")},
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def spmd_shapes(gcfg) -> list:
+    """The kernels' shapes on the spmd phase's path, as
+    :func:`family_shapes` gives them: each rank's, at its 12/4 heads of
+    granite's 24/8: the train run's bf16 forward with LSE and backward at
+    one row of 2048 a microbatch, the serve's fp32 prefill at two rows of
+    1000, its bf16 decode at kv_len 1000 (1000 to 1015 in the run)."""
+    m = SPMD_MESH[1]
+    hd = dict(hq=gcfg.num_heads // m, hkv=gcfg.num_kv_heads // m,
+              dh=gcfg.resolved_head_dim)
+    one = fractions.Fraction(1)
+    kw = dict(hd, b=1, s=2048, dtype=torch.bfloat16, arch=SPMD_TRAIN)
+    return [("flash_attention", SPMD_TRAIN, one, dict(kw, lse=True)),
+            ("flash_attention_bwd", SPMD_TRAIN, one, kw),
+            ("flash_attention", SPMD_SERVE, one,
+             dict(hd, b=2, s=1000, dtype=torch.float32, arch=SPMD_SERVE)),
+            ("decode_attention", SPMD_SERVE, one,
+             dict(hd, smax=1017, kv_len=1000, dtype=torch.bfloat16,
+                  arch=SPMD_SERVE))]
+
+
 # --------------------------------------------------------------- phase 4
 _FLUSH = []
 
@@ -2193,7 +2865,7 @@ def phase_kernels(cfg, scfg, hcfg, fams, device, launches: dict) -> dict:
     rng = np.random.default_rng(0)
     rows = _earlier_rows(dev, rng, cfg, scfg, hcfg)
     rows += _control_plane_rows(dev, rng, cfg)
-    extra = _family_rows(dev, rng, fams)
+    extra = _family_rows(dev, rng, fams) + _spmd_rows(dev, rng, fams[0])
     for r in rows + [r for r, _, _ in extra]:
         emit(r)
     return kernels_line(cfg, scfg, hcfg, fams, rows, extra, launches)
@@ -2359,6 +3031,15 @@ def _family_rows(dev, rng, fams) -> list:
             for k, arch, share, kw in family_shapes(fams)]
 
 
+def _spmd_rows(dev, rng, gcfg) -> list:
+    """:func:`spmd_shapes`' cases run, as :func:`_family_rows` runs its."""
+    case = {"flash_attention": _flash_case,
+            "flash_attention_bwd": _flash_bwd_case,
+            "decode_attention": _decode_case}
+    return [(case[k](dev, rng=rng, **kw), arch, share)
+            for k, arch, share, kw in spmd_shapes(gcfg)]
+
+
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2416,6 +3097,10 @@ def main() -> int:
     launches[SHARDED_TRAIN] = cp["train"]["launches"]
     del cp
     _free()
+    spmd = phase_spmd(dev)
+    launches[SPMD_TRAIN] = spmd["train"]["launches"]
+    launches[SPMD_SERVE] = spmd["serve"]["launches"]
+    del spmd
     train = phase_train(cfg, dev)
     launches[f"{cfg.name} train"] = train["result"]["launches"]
     phase_train_profile(train["executor"])

@@ -16,6 +16,15 @@ Serve: the reference casts the fp32 master params to ``cfg.dtype`` inside
 every serve step. Here the caller holds one copy of the params in
 ``cfg.dtype`` (:func:`cast_params`, made once) and passes it to the step,
 which computes the same thing without a cast per token.
+
+On a mesh (``rules``, the reference's argument of the same name): the
+params and the optimizer state are DTensors laid out by
+``launch/shardrules.py`` (:func:`init_train_state` with ``rules``, or
+:func:`distribute_train_state` of given masters); a step places plain
+inputs by the batch's shardings (the reference's jit ``in_shardings``)
+and runs under the rule set; each gradient is laid out as its master
+before the update (once a step, after the microbatches); the metrics and
+the serve steps' tokens and log-probs come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -27,11 +36,15 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.sharding import place_batch
 from repro_torch.interop import reference_leaves
+from repro_torch.launch import shardrules as SR
 from repro_torch.models.registry import build_model
 from repro_torch.optim import apply_updates, init_opt
 from repro_torch.optim.clipping import global_norm
 from repro_torch.optim.compression import compress_grads, init_error
+from repro_torch.sharding import (Rules, from_full, full_tensor, is_dtensor,
+                                  use_rules, zeros)
 
 
 def copy_params(params: nn.Module, fn) -> nn.Module:
@@ -58,38 +71,65 @@ def cast_params(params: nn.Module, dtype) -> nn.Module:
         dt if t.is_floating_point() else t.dtype, copy=True))
 
 
-def make_serve_step(cfg: ModelConfig, temperature: float = 0.0):
+def place_inputs(cfg: ModelConfig, rules: Optional[Rules],
+                 batch: Dict[str, Any]) -> Dict[str, Any]:
+    """The plain tensors of ``batch`` as DTensors of the batch's shardings
+    (``SR.batch_shardings``), each rank keeping its rows; DTensors, and
+    everything without a rule set, as they are."""
+    if rules is None:
+        return batch
+    plain = {k: v for k, v in batch.items()
+             if torch.is_tensor(v) and not is_dtensor(v) and v.dim() > 0}
+    return {**batch, **place_batch(plain, SR.batch_shardings(cfg, rules,
+                                                             plain))}
+
+
+def make_serve_step(cfg: ModelConfig, rules: Optional[Rules] = None,
+                    temperature: float = 0.0):
     """(params, tokens, cache, generator) -> (next_tokens, cache, logprobs).
 
     ``params`` in ``cfg.dtype`` (see :func:`cast_params`); greedy at
-    temperature 0, else sampled with ``generator``."""
+    temperature 0, else sampled with ``generator``. With ``rules``: params
+    and cache laid out on the mesh, the tokens placed over the batch; the
+    new tokens and log-probs whole on every rank."""
     model = build_model(cfg)
 
     @torch.no_grad()
     def step(params, tokens, cache, generator: Optional[torch.Generator] = None):
-        logits, new_cache = model.decode_step(params, tokens, cache)
-        logits = logits[:, -1].float()
-        if temperature > 0:
-            nxt = torch.multinomial(torch.softmax(logits / temperature, -1), 1,
-                                    generator=generator)[:, 0]
-        else:
-            nxt = torch.argmax(logits, dim=-1)
-        lp = torch.log_softmax(logits, dim=-1)
-        sel = torch.gather(lp, -1, nxt[:, None])[:, 0]
-        return nxt[:, None].to(torch.int32), new_cache, sel
+        with use_rules(rules):
+            tokens = place_inputs(cfg, rules, {"tokens": tokens})["tokens"]
+            logits, new_cache = model.decode_step(params, tokens, cache)
+            logits = full_tensor(logits[:, -1]).float()
+            if temperature > 0:
+                nxt = torch.multinomial(
+                    torch.softmax(logits / temperature, -1), 1,
+                    generator=generator)[:, 0]
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            lp = torch.log_softmax(logits, dim=-1)
+            sel = torch.gather(lp, -1, nxt[:, None])[:, 0]
+            return nxt[:, None].to(torch.int32), new_cache, sel
 
     return step
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
+def make_prefill_step(cfg: ModelConfig, rules: Optional[Rules],
+                      max_len: int):
     """(params, batch) -> (first generated token [B,1], cache), with
-    ``params`` in ``cfg.dtype`` (the reference casts inside the step)."""
+    ``params`` in the dtype to prefill in (the reference casts to
+    ``cfg.dtype`` inside the step; its executor prefills with the fp32
+    masters). With ``rules``: the batch placed over the batch dims, the
+    cache laid out by ``SR.cache_shardings``, the token whole on every
+    rank."""
     model = build_model(cfg)
 
     @torch.no_grad()
     def step(params, batch):
-        logits, cache = model.prefill(params, batch, max_len)
-        return torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32), cache
+        with use_rules(rules):
+            logits, cache = model.prefill(
+                params, place_inputs(cfg, rules, batch), max_len)
+            logits = full_tensor(logits[:, -1])
+        return torch.argmax(logits, -1)[:, None].to(torch.int32), cache
 
     return step
 
@@ -97,6 +137,16 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
 # ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
+def lay_out_grads(params: nn.Module, grads: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """On a mesh, each gradient laid out as its master (a partial sum
+    reduced, a whole one sliced); plain tensors as they are."""
+    named = dict(params.named_parameters())
+    return {n: g.redistribute(named[n].device_mesh, named[n].placements)
+            if is_dtensor(g) and tuple(g.placements) != tuple(
+                named[n].placements) else g for n, g in grads.items()}
+
+
 def loss_and_grads(cfg: ModelConfig, params: nn.Module,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
@@ -104,16 +154,19 @@ def loss_and_grads(cfg: ModelConfig, params: nn.Module,
     """(loss, metrics, grads): ``train_loss`` on the master ``params`` cast
     to ``cfg.dtype`` and its gradients with respect to the masters, by
     parameter name. The backward runs inside the ``functional_call``, so
-    that remat's recompute reads the casts too."""
+    that remat's recompute reads the casts too. On a mesh the loss and the
+    metrics are whole on every rank, and the gradients as autograd gives
+    them (partial sums among them: :func:`lay_out_grads` lays them out)."""
     model = build_model(cfg)
     dt = getattr(torch, cfg.dtype)
     names, masters = zip(*params.named_parameters())
 
     def run(lm, b):
         loss, metrics = model.train_loss(lm, b)
-        grads = torch.autograd.grad(loss, masters)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            dict(zip(names, grads))
+        loss = full_tensor(loss)
+        grads = dict(zip(names, torch.autograd.grad(loss, masters)))
+        return loss.detach(), {k: full_tensor(v).detach()
+                               for k, v in metrics.items()}, grads
 
     cast = {n: p.to(dt) if p.is_floating_point() else p
             for n, p in zip(names, masters)}
@@ -136,27 +189,39 @@ def _micro(batch: Dict[str, torch.Tensor], mb: int, i: int):
     return out
 
 
-def make_train_step(cfg: ModelConfig, grad_compression: bool = False):
+def make_train_step(cfg: ModelConfig, rules: Optional[Rules] = None,
+                    grad_compression: bool = False):
     """(state, batch, knobs) -> (state, metrics).
 
     state = {"params": the master module, "opt", "err"?}; batch = the
     family's inputs (``data.pipeline.batch_for``: tokens or embeds and
     mrope_positions, or frames and tokens; labels) on the params' device;
-    knobs = {"lr": float}."""
+    knobs = {"lr": float}. With ``rules``, the state laid out on the mesh
+    (see the module's docstring)."""
 
     def step(state, batch, knobs):
+        with use_rules(rules):
+            return _train_step(state, batch, knobs)
+
+    def _train_step(state, batch, knobs):
         params = state["params"]
         mb = max(1, cfg.microbatches)
         if mb == 1:
-            loss, metrics, grads = loss_and_grads(cfg, params, batch)
+            loss, metrics, grads = loss_and_grads(
+                cfg, params, place_inputs(cfg, rules, batch))
+            grads = lay_out_grads(params, grads)
         else:
             # gradient accumulation: one microbatch's activations at a time,
             # the sum kept in the first microbatch's gradients (in place:
             # no third set of gradients, 10.6 GB at recurrentgemma-9b's
-            # 8-layer cut)
+            # 8-layer cut); on a mesh the sums stay partial until the last
+            # microbatch's are in: one reduction a step
+            # each microbatch is cut from the whole batch and placed alone
+            batch = {k: full_tensor(v) for k, v in batch.items()}
             grads, losses, mets = None, [], []
             for i in range(mb):
-                l_, m_, g_ = loss_and_grads(cfg, params, _micro(batch, mb, i))
+                l_, m_, g_ = loss_and_grads(
+                    cfg, params, place_inputs(cfg, rules, _micro(batch, mb, i)))
                 if grads is None:
                     grads = g_
                 else:
@@ -165,6 +230,7 @@ def make_train_step(cfg: ModelConfig, grad_compression: bool = False):
                 del g_
                 losses.append(l_)
                 mets.append(m_)
+            grads = lay_out_grads(params, grads)
             torch._foreach_div_(list(grads.values()), float(mb))
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in mets]).mean()
@@ -181,20 +247,90 @@ def make_train_step(cfg: ModelConfig, grad_compression: bool = False):
         out = {"params": params, "opt": new_opt}
         if grad_compression:
             out["err"] = new_err
-        return out, dict(metrics, loss=loss, grad_norm=gnorm, **stats)
+        return out, dict(metrics, loss=loss, grad_norm=full_tensor(gnorm),
+                         **stats)
 
     return step
 
 
 def init_train_state(cfg: ModelConfig, gen: torch.Generator,
-                     grad_compression: bool = False) -> Dict[str, Any]:
+                     grad_compression: bool = False,
+                     rules: Optional[Rules] = None,
+                     device=None) -> Dict[str, Any]:
     """Master params from ``gen`` (on its device) and a fresh optimizer
-    state; ``err`` (zeros) with ``grad_compression``."""
+    state; ``err`` (zeros) with ``grad_compression``. With ``rules``, laid
+    out on the mesh by :func:`train_state_shardings`, each rank's shards
+    on ``device``: ``gen`` (a CPU generator, the same seed on every rank)
+    draws every master on the CPU, as one device would, and each rank
+    keeps its shard of each, parameter by parameter, so that no rank
+    holds the whole model on its device."""
     params = build_model(cfg).init(gen).requires_grad_(True)
+    if rules is not None:
+        return distribute_train_state(cfg, rules, params, grad_compression,
+                                      device)
     state = {"params": params, "opt": init_opt(cfg, params)}
     if grad_compression:
         state["err"] = init_error(params)
     return state
+
+
+def train_state_shardings(cfg: ModelConfig, rules: Rules, state) -> Any:
+    """The state's shardings: params by ``SR.param_shardings``, the
+    optimizer state by ``SR.opt_shardings``, ``err`` as the params."""
+    out = {"params": SR.param_shardings(cfg, rules, state["params"]),
+           "opt": SR.opt_shardings(cfg, rules, state["params"],
+                                   state["opt"])}
+    if "err" in state:
+        out["err"] = dict(out["params"])
+    return out
+
+
+def distribute_params(cfg: ModelConfig, rules: Rules, params: nn.Module,
+                      device=None) -> nn.Module:
+    """``params`` with every parameter replaced, one at a time, by a
+    DTensor of its sharding holding this rank's shard on ``device`` (the
+    module's own tensors are dropped as they are replaced)."""
+    shardings = SR.param_shardings(cfg, rules, params)
+    for mname, mod in params.named_modules():
+        for pname, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            sh = shardings[f"{mname}.{pname}" if mname else pname]
+            mod._parameters[pname] = nn.Parameter(
+                from_full(p.detach(), sh.mesh, sh.placements, device),
+                requires_grad=p.requires_grad)
+    return params
+
+
+def distribute_train_state(cfg: ModelConfig, rules: Rules,
+                           params: nn.Module,
+                           grad_compression: bool = False,
+                           device=None) -> Dict[str, Any]:
+    """A fresh train state on the mesh from master ``params`` whole on
+    every rank: the params by :func:`distribute_params`; the optimizer
+    state (and ``err``) zeros, each tensor a DTensor of its sharding, each
+    rank allocating its own shard alone. ``step`` stays a plain scalar."""
+    meta = copy_params(params, lambda t: torch.empty_like(t, device="meta"))
+    opt = init_opt(cfg, meta)
+    shardings = train_state_shardings(
+        cfg, rules, {"params": meta, "opt": opt,
+                     **({"err": None} if grad_compression else {})})
+    dev = device if device is not None else next(params.parameters()).device
+    params = distribute_params(cfg, rules, params, device)
+
+    def zeros_like(tree, sh):
+        if isinstance(tree, dict):
+            return {k: zeros_like(v, sh[k]) for k, v in tree.items()}
+        return zeros(tree.shape, tree.dtype, sh, dev)
+
+    out = {"params": params,
+           "opt": {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                   "inner": zeros_like(opt["inner"],
+                                       shardings["opt"]["inner"])}}
+    if grad_compression:
+        out["err"] = {n: zeros(p.shape, torch.float32, shardings["err"][n],
+                               dev) for n, p in meta.named_parameters()}
+    return out
 
 
 class _MetaGenerator(torch.Generator):

@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding import is_dtensor, shard
 
 KVCache = Dict[str, torch.Tensor]  # {"k": [L,B,Smax,Hkv,Dh], "v": ..., "idx": int32 scalar}
 
@@ -92,6 +93,12 @@ def _needs_grad(*ts) -> bool:
 
 
 def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None):
+    if is_dtensor(q):
+        # on a mesh: this function on each rank's batch rows and heads
+        def local(a, b, c, off, n):
+            return _sdpa(a, b, c, causal=causal, window=window,
+                         q_offset=off, kv_len=n)
+        return kops.attention_on_mesh(local, q, k, v, q_offset, kv_len)
     if q.device.type == "cuda":
         if q.shape[1] == 1 and kv_len is not None:                  # decode
             return kops.decode_attention(q, k, v, kv_len=kv_len,
@@ -144,9 +151,10 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     the reference splits it.
     """
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    q = _split_heads(L.dense(p.q, x), hq)
-    k = _split_heads(L.dense(p.k, x), hkv)
-    v = _split_heads(L.dense(p.v, x), hkv)
+    q = shard(_split_heads(L.dense(p.q, x), hq), "batch", None,
+              "model_heads")
+    k = shard(_split_heads(L.dense(p.k, x), hkv), "batch", None, "model_kv")
+    v = shard(_split_heads(L.dense(p.v, x), hkv), "batch", None, "model_kv")
     if mrope_positions is not None:
         dh = q.shape[-1]
         sec = (dh // 2 - 2 * (dh // 6), dh // 6, dh // 6)
@@ -167,21 +175,65 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         # min(t+1, W); slot and kv_len stay on the device (no host sync)
         ck, cv = cache_kv
         slot = torch.remainder(cache_idx.long(), window).reshape(1)
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
+        cache_write(ck, slot, k)
+        cache_write(cv, slot, v)
         kv_len = torch.clamp(cache_idx + 1, max=window)
         out = kops.decode_attention(q, ck, cv, kv_len=kv_len)
         new_kv = (ck, cv)
     else:
         ck, cv = cache_kv
         pos = cache_idx.long() + torch.arange(x.shape[1], device=x.device)
-        ck.index_copy_(1, pos, k.to(ck.dtype))
-        cv.index_copy_(1, pos, v.to(cv.dtype))
+        cache_write(ck, pos, k)
+        cache_write(cv, pos, v)
         kv_len = cache_idx + x.shape[1]
         out = _sdpa(q, ck, cv, causal=causal, window=window,
                     q_offset=cache_idx, kv_len=kv_len)
         new_kv = (ck, cv)
-    return p.o(_merge_heads(out)), new_kv
+    return shard(p.o(_merge_heads(out)), "batch", None, None), new_kv
+
+
+def cache_write(cache: torch.Tensor, pos: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``cache[:, pos] = new`` in place ([B,Smax,H,Dh] and [B,n,H,Dh]),
+    cast to the cache's dtype. On a mesh each rank writes its own shard,
+    ``new`` laid out as the cache but whole on its positions; a cache split
+    on its sequence (``shardrules.cache_shardings``' long cache whose KV
+    heads do not split over "model") takes, on each rank, the positions
+    that fall in its slice (:func:`_in_slice`)."""
+    new = new.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache.index_copy_(1, pos, new)
+        return
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if pl.is_shard(1) else pl
+                 for pl in cache.placements)
+    if tuple(new.placements) != want:
+        new = new.redistribute(cache.device_mesh, want)
+    pos = pos.full_tensor() if is_dtensor(pos) else pos
+    local, new = cache.to_local(), new.to_local()
+    if want != tuple(cache.placements):
+        pos, new = _in_slice(cache, local, pos, new)
+    local.index_copy_(1, pos, new)
+
+
+def _in_slice(cache, local, pos, new):
+    """(positions, values) of this rank's write into its slice ``local`` of
+    a cache split on its sequence, with no host sync: a position outside
+    the slice writes the first inside one's value to that one's place
+    instead, or, where none is inside, slot 0's own value back, so that
+    every place a copy writes twice gets one value twice."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    off = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, list(cache.placements))[1][1]
+    dst = pos.long() - off
+    inside = (dst >= 0) & (dst < local.shape[1])
+    first = torch.argmax(inside.to(torch.int32))     # 0 where none is
+    src = torch.where(inside, torch.arange(len(pos), device=pos.device),
+                      first)
+    some = inside.any()
+    return (torch.where(some, dst[src], 0),
+            torch.where(some, new.index_select(1, src), local[:, :1]))
 
 
 def cross_attention(p: Attention, x: torch.Tensor,

@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import chunked_xent
+from repro_torch.sharding import shard
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -106,7 +107,7 @@ def encode(cfg: ModelConfig, params: EncDecLM,
     """frames: [B,Senc,D] precomputed embeddings (stub frontend), rounded to
     ``cfg.dtype`` as the reference casts them (the layers widen them where
     the params are wider: ``L.dense``)."""
-    x = frames.to(_dtype(cfg))
+    x = shard(frames.to(_dtype(cfg)), "batch", "seq", None)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params.encoder:
         x = _maybe_ckpt(cfg, functools.partial(_enc_layer, cfg, positions,
@@ -153,7 +154,7 @@ def train_loss(cfg: ModelConfig, params: EncDecLM, batch: Dict[str, Any]
     """(mean next-token loss of the decoder, {"loss", "aux_loss": 0}) of
     ``batch`` (frames [B,Senc,D], tokens and labels [B,S])."""
     enc_out = encode(cfg, params, batch["frames"])
-    x = params.embed(batch["tokens"])
+    x = shard(params.embed(batch["tokens"]), "batch", "seq", None)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _ = _decoder_stack(cfg, params, x, enc_out, positions)
     x = params.final_norm(x)
@@ -192,8 +193,8 @@ def prefill(cfg: ModelConfig, params: EncDecLM, batch: Dict[str, Any],
     ck, cv = cache["layers"]["k"], cache["layers"]["v"]
     x, kvs = _decoder_stack(cfg, params, x, enc_out, positions)
     for i, (k, v) in enumerate(kvs):
-        ck[i, :, :s] = k.to(ck.dtype)
-        cv[i, :, :s] = v.to(cv.dtype)
+        A.cache_write(ck[i], positions[0], k)
+        A.cache_write(cv[i], positions[0], v)
     keep = enc_out[:, : cfg.cross_kv_len]
     cache["enc_out"][:, : keep.shape[1]] = keep.to(cache["enc_out"].dtype)
     cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import shard
+
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -91,7 +93,7 @@ class MLP(nn.Module):
             h = act_fn(self.act)(self.gate(x)) * h
         else:
             h = act_fn(self.act)(h)
-        return self.down(h)
+        return self.down(shard(h, "batch", None, "model_ff"))
 
 
 # ---------------------------------------------------------------------------

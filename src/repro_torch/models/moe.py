@@ -1,16 +1,18 @@
-"""Mixture-of-Experts FFN: top-k router and two dispatch paths.
+"""Mixture-of-Experts FFN: top-k router and three dispatch paths.
 
 PyTorch counterpart of ``repro/models/moe.py``:
 - "dense": the all-experts oracle (exact, FLOP-wasteful x E/top_k);
 - "sort": the capacity-bounded dispatch, the reference's single-device
   production algorithm (a stable sort by expert gives each token its rank
   among the tokens routed to the same expert; ranks past the capacity are
-  dropped).
-
-The reference's third path, ``moe_ffn_ep`` (``shard_map`` expert
-parallelism), needs a mesh, which the port does not have yet (ROADMAP
-Queue 1, multi-GPU); :func:`moe_ffn` picks dense or sort by
-``cfg.moe.dispatch``.
+  dropped); on a mesh whose "model" dim is 1, the whole batch's dispatch
+  on every rank;
+- EP (when a rule set is installed and the "model" mesh dim is larger than
+  1, as the reference decides): :func:`moe_ffn_ep`, ``local_map`` expert
+  parallelism with *local* dispatch (the reference's ``shard_map``):
+  routing runs on the whole batch's DTensors, each rank scatters its own
+  tokens to its own slab of experts, and the partial outputs are summed
+  over "model".
 
 Expert weights are stored padded to a multiple of ``EP_SHARDS`` experts, as
 the reference stores them (``[E_pad, d, f]``), so that params and
@@ -21,6 +23,8 @@ in a Pallas kernel.
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Tuple
 
 import torch
@@ -28,6 +32,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import (current_rules, flat_rows, from_full,
+                                  is_dtensor, placements_for, shard)
 
 EP_SHARDS = 16          # the reference's "model" axis; expert padding unit
 CAPACITY_FACTOR = 1.25
@@ -78,7 +84,7 @@ def route(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, m.top_k, dim=-1)                 # [T,k]
     if p.pin is not None:
-        idx = p.pin(idx)
+        idx = _pinned(p.pin, idx)
         w = probs.gather(-1, idx)
     w = w / torch.sum(w, dim=-1, keepdim=True)
     # load-balancing aux loss (Switch-style): E * sum_e f_e * p_e, f_e the
@@ -86,12 +92,41 @@ def route(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     # summed over the k slots, counted here by a scatter (exact: sums of
     # ones), with no [T,k,E] one-hot and no host sync
     me = torch.mean(probs, dim=0)                               # mean prob
-    ce = torch.zeros(m.num_experts, dtype=torch.float32,
-                     device=x2d.device).index_add_(
-        0, idx.reshape(-1), torch.ones(idx.numel(), device=x2d.device)
-    ) / idx.shape[0]                                            # routed frac
+    ce = _expert_counts(idx, m.num_experts) / idx.shape[0]      # routed frac
     aux = m.num_experts * torch.sum(me * ce)
     return w.to(x2d.dtype), idx, aux
+
+
+def _counts(idx: torch.Tensor, e: int) -> torch.Tensor:
+    return torch.zeros(e, dtype=torch.float32, device=idx.device).index_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), device=idx.device))
+
+
+def _expert_counts(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """[E] fp32: how many of the [T,k] assignments go to each expert. On a
+    mesh each rank counts its own tokens (DTensor has no rule for the
+    scatter) and the counts are a sum over the mesh dims that split the
+    tokens."""
+    if not is_dtensor(idx):
+        return _counts(idx, e)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    out = [Partial() if pl == Shard(0) else Replicate()
+           for pl in idx.placements]
+    if any(pl.is_shard() and pl != Shard(0) for pl in idx.placements):
+        idx = idx.redistribute(idx.device_mesh, [
+            pl if pl == Shard(0) else Replicate() for pl in idx.placements])
+    return local_map(lambda il: _counts(il, e), out_placements=out,
+                     in_placements=(list(idx.placements),),
+                     device_mesh=idx.device_mesh)(idx)
+
+
+def _pinned(pin, idx: torch.Tensor) -> torch.Tensor:
+    """``pin`` applied to the whole [T,k] ids (a DTensor's gathered, and the
+    result put back in its layout)."""
+    if not is_dtensor(idx):
+        return pin(idx)
+    return from_full(pin(idx.full_tensor()), idx.device_mesh, idx.placements)
 
 
 def _expert_ffn(p: MoE, buf: torch.Tensor, cfg: ModelConfig
@@ -174,12 +209,97 @@ def moe_ffn_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-device capacity dispatch. x: [B,S,D]."""
     b, s, d = x.shape
-    x2d = x.reshape(b * s, d)
+    x2d = flat_rows(x)
     w, idx, aux = route(p, x2d, cfg)
-    out2d = _dispatch_compute(p, x2d, idx, w, cfg, e_base=0,
-                              e_loc=_epad(cfg.moe.num_experts),
-                              cap=capacity(b * s, cfg, capacity_factor))
+    compute = functools.partial(
+        _dispatch_compute, cfg=cfg, e_base=0,
+        e_loc=_epad(cfg.moe.num_experts),
+        cap=capacity(b * s, cfg, capacity_factor))
+    if is_dtensor(x2d):
+        # on a mesh whose "model" dim is 1: the dispatch of the whole batch
+        # on every rank (DTensor has no rule for its sort and search)
+        out2d = _replicated(lambda up, gate, down, xl, il, wl: compute(
+            types.SimpleNamespace(up=up, gate=gate, down=down), xl, il, wl),
+            p.up, p.gate, p.down, x2d, idx, w)
+    else:
+        out2d = compute(p, x2d, idx, w)
     return out2d.reshape(b, s, d), aux
+
+
+def _replicated(fn, *args):
+    """``fn`` on the whole of its DTensor ``args`` on every rank (None
+    passed as it is); its output replicated."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a for a in args if a is not None).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    args = [a if a is None or list(a.placements) == rep
+            else a.redistribute(mesh, rep) for a in args]
+    return local_map(fn, out_placements=rep,
+                     in_placements=tuple(None if a is None else rep
+                                         for a in args),
+                     device_mesh=mesh)(*args)
+
+
+def moe_ffn_ep(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+               capacity_factor: float = CAPACITY_FACTOR
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel path (see the module docstring). x: [B,S,D], a
+    DTensor. The expert slabs are split over "model" (each rank's
+    ``_epad(E) // model`` experts from ``rank_model * e_loc``); the tokens,
+    their weights and ids over the batch dims. Each rank's capacity is
+    that of its own tokens, ``(B // dp) * S``, as the reference's."""
+    rules = current_rules()
+    mesh = rules.mesh
+    m = cfg.moe
+    b, s, d = x.shape
+    x = shard(x, "batch", None, None)
+    w, idx, aux = route(p, flat_rows(x), cfg)
+    w3 = shard(w.reshape(b, s, m.top_k), "batch", None, None)
+    i3 = shard(idx.reshape(b, s, m.top_k), "batch", None, None)
+
+    batch_phys = rules.physical("batch")
+    e_loc = _epad(m.num_experts) // mesh["model"].size()
+    t_loc = (b // rules.size("batch")) * s
+    cap = capacity(t_loc, cfg, capacity_factor)
+
+    from torch.distributed.tensor import Partial
+    bspec = (batch_phys, None, None)
+    bpl = list(placements_for(mesh, bspec))
+    wpl = list(placements_for(mesh, ("model", None, None)))
+    names = list(mesh.mesh_dim_names)
+    batch_dims = batch_phys if isinstance(batch_phys, tuple) \
+        else (batch_phys,)
+    # each rank's output is its experts' share of its tokens: a sum over
+    # "model"; the gradients of the replicated inputs are sums too (the
+    # tokens' over "model", the slabs' over the batch dims)
+    out_pl = [Partial() if n == "model" else pl
+              for n, pl in zip(names, bpl)]
+    wgrad = [Partial() if n in batch_dims else pl
+             for n, pl in zip(names, wpl)]
+
+    def local_fn(up, gate, down, xl, wl, il):
+        rank_m = mesh.get_local_rank("model")
+        bl, sl, dl = xl.shape
+        pl_ = types.SimpleNamespace(up=up, gate=gate, down=down)
+        out2d = _dispatch_compute(
+            pl_, xl.reshape(bl * sl, dl), il.reshape(bl * sl, m.top_k),
+            wl.reshape(bl * sl, m.top_k), cfg,
+            e_base=rank_m * e_loc, e_loc=e_loc, cap=cap)
+        return out2d.reshape(bl, sl, dl)
+
+    from torch.distributed.tensor.experimental import local_map
+    slabs = [t if t is None or list(t.placements) == wpl
+             else t.redistribute(mesh, wpl) for t in (p.up, p.gate, p.down)]
+    fn = local_map(
+        local_fn, out_placements=out_pl,
+        in_placements=(wpl, wpl if p.gate is not None else None, wpl,
+                       bpl, bpl, bpl),
+        in_grad_placements=(wgrad, wgrad if p.gate is not None else None,
+                            wgrad, out_pl, out_pl, bpl),
+        device_mesh=mesh)
+    out = fn(*slabs, x, w3, i3)
+    return shard(out, "batch", None, None), aux
 
 
 def moe_ffn_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig
@@ -207,4 +327,8 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.moe.dispatch == "dense":
         return moe_ffn_dense(p, x, cfg)
+    rules = current_rules()
+    if rules is not None and "model" in rules.mesh.mesh_dim_names \
+            and rules.mesh["model"].size() > 1:
+        return moe_ffn_ep(p, x, cfg)
     return moe_ffn_sort(p, x, cfg)

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.sharding import shard
 
 _C = 8.0
 
@@ -115,8 +116,8 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     "lru": [B,lw] fp32})."""
     conv_state = None if state is None else state["conv"]
     h0 = None if state is None else state["lru"]
-    branch, new_conv = _causal_conv(p.in_proj(x), p.conv_w, p.conv_b,
-                                    conv_state)
+    branch = shard(p.in_proj(x), "batch", None, "model_ff")
+    branch, new_conv = _causal_conv(branch, p.conv_w, p.conv_b, conv_state)
     rec, h_fin = _rglru_core(p, branch, h0)
     gate = F.gelu(p.gate(x), approximate="tanh")
     return p.out(gate * rec), {"conv": new_conv, "lru": h_fin}

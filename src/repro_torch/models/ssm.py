@@ -23,6 +23,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding import shard
 
 
 def _dims(cfg: ModelConfig):
@@ -103,7 +104,8 @@ def ssd_mixer(p: SSDMixer, x: torch.Tensor, cfg: ModelConfig,
     xi, bmat, cmat = torch.split(conv_out, [d_in, s.state_dim, s.state_dim],
                                  dim=-1)
     bsz, seq = x.shape[:2]
-    xh = xi.reshape(bsz, seq, nh, s.head_dim)
+    xh = shard(xi.reshape(bsz, seq, nh, s.head_dim), "batch", None,
+               "model_heads")
 
     if state is None:
         # [B,S,H,P] -> [B*H,S,P]; B and C stay [B,S,N], shared by the H heads

@@ -58,6 +58,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.sharding import current_rules, is_dtensor, shard
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -293,10 +294,44 @@ def _run_stack_train(cfg: ModelConfig, params: DecoderLM, x, *, positions,
 
 
 def _xent_chunk(xi: torch.Tensor, table: torch.Tensor, li: torch.Tensor):
-    logits = (xi @ table.T).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+    logits = shard((xi @ table.T).float(), "batch", None, "model_vocab")
+    if is_dtensor(logits):
+        logz, gold = _vocab_split_terms(logits, li)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
     return torch.sum(logz - gold)
+
+
+def _vocab_split_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, the label's logit) of [B,c,V] logits on a mesh, each rank
+    working on its own slice of the vocabulary: the slice's logsumexp, one
+    a rank, joined by a logsumexp over the ranks; the label's logit where
+    it lies in the slice, else 0, summed over the ranks. Only [B,c] terms
+    cross ranks: DTensor's own logsumexp and gather of a vocab-split tensor
+    would make the [B,c,V] logits whole on every rank first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = logits.device_mesh, list(logits.placements)
+    v0 = compute_local_shape_and_global_offset(logits.shape, mesh, pl)[1][2]
+    lab_pl = [Replicate() if p == Shard(2) else p for p in pl]
+    if list(labels.placements) != lab_pl:
+        labels = labels.redistribute(mesh, lab_pl)
+
+    def local(lg, lab):
+        i = lab.long() - v0
+        mine = (i >= 0) & (i < lg.shape[-1])
+        gold = torch.gather(lg, -1, torch.where(mine, i, 0)[..., None])
+        return torch.logsumexp(lg, dim=-1, keepdim=True), \
+            torch.where(mine, gold[..., 0], 0.0)
+    # the slices' logsumexps as a [B,c,ranks] tensor split like the vocab
+    lse, gold = local_map(
+        local, out_placements=(pl, [Partial() if p == Shard(2) else p
+                                    for p in pl]),
+        in_placements=(pl, lab_pl), device_mesh=mesh)(logits, labels)
+    return torch.logsumexp(lse, dim=-1), gold
 
 
 def chunked_xent(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
@@ -307,6 +342,7 @@ def chunked_xent(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body)``)
     and again in the backward, so the peak is [B,chunk,V]. S must be a
     multiple of the chunk, as the reference's reshape needs."""
+    table = shard(table, "model_vocab", None)
     b, s, _ = x.shape
     chunk = min(cfg.loss_chunk, s)
     if s % chunk:
@@ -326,8 +362,13 @@ def _embed_inputs(cfg: ModelConfig, params: DecoderLM,
     ``embed_stub`` config rounded to ``cfg.dtype`` (the reference's cast).
     The layers widen them where the params are wider (``L.dense``)."""
     if cfg.embed_stub:
-        return batch["embeds"].to(_dtype(cfg))
-    return params.embed(batch["tokens"])
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        # a replicated view of the table (the reference's gather is from
+        # one; a no-op without a rule set)
+        x = torch.nn.functional.embedding(
+            batch["tokens"], shard(params.embed.weight, None, None))
+    return shard(x, "batch", "seq", None)
 
 
 def _mrope(cfg: ModelConfig, batch: Dict[str, Any]):
@@ -357,8 +398,32 @@ def train_loss(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any]
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+def place_cache(cfg: ModelConfig, cache: Dict[str, Any]) -> Dict[str, Any]:
+    """Under a rule set, the cache's tensors (but its scalars) as DTensors
+    laid out by ``launch/shardrules.py``'s ``cache_shardings``; without
+    one, the cache as it is."""
+    rules = current_rules()
+    if rules is None:
+        return cache
+    from repro_torch.launch.shardrules import cache_shardings
+    from repro_torch.sharding import from_full
+
+    def place(tree, sh):
+        if isinstance(tree, dict):
+            return {k: place(v, sh[k]) for k, v in tree.items()}
+        if tree is None or tree.dim() == 0:
+            return tree
+        return from_full(tree, sh.mesh, sh.placements)
+    return place(cache, cache_shardings(cfg, rules, cache))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Dict[str, Any]:
+    return place_cache(cfg, _init_cache(cfg, batch, max_len, device))
+
+
+def _init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                device) -> Dict[str, Any]:
     idx = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.family == FAMILY_SSM:
         return {"layers": S.init_ssm_state(cfg, batch, cfg.num_layers,
@@ -405,8 +470,8 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any],
     for i, lp in enumerate(params.layers):
         x, (k, v), _ = _attn_block(lp, x, cfg, positions=positions,
                                    mrope=mrope)
-        ck[i, :, :s] = k.to(ck.dtype)
-        cv[i, :, :s] = v.to(cv.dtype)
+        A.cache_write(ck[i], positions[0], k)
+        A.cache_write(cv[i], positions[0], v)
     cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     x = params.final_norm(x)
     logits = L.unembed(_head_table(cfg, params), x[:, -1:])
@@ -444,8 +509,8 @@ def _hybrid_prefill(cfg: ModelConfig, params: DecoderLM, x, max_len: int
         else:
             x, (k, v), _ = _attn_block(lp, x, cfg, positions=positions,
                                        window=cfg.rglru.window)
-            c["k"][i].index_copy_(1, slots, k[:, pos].to(c["k"].dtype))
-            c["v"][i].index_copy_(1, slots, v[:, pos].to(c["v"].dtype))
+            A.cache_write(c["k"][i], slots, k[:, pos])
+            A.cache_write(c["v"][i], slots, v[:, pos])
     cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     x = params.final_norm(x)
     return L.unembed(_head_table(cfg, params), x[:, -1:]), cache

@@ -409,7 +409,7 @@ class ServeExecutor:
         self.set_params(self.model.init(gen))
         self.serve_fn = make_serve_step(cfg)
         # prefill takes the master params uncast, as the reference does
-        self.prefill_fn = make_prefill_step(cfg, self.max_len)
+        self.prefill_fn = make_prefill_step(cfg, None, self.max_len)
         self.slot_row: Dict[int, int] = {}
         self.slot_tokens: Dict[int, List[int]] = {}
         self.slot_budget: Dict[int, int] = {}

@@ -1,10 +1,11 @@
 """Rehearsal of chip_smoke.py on the CPU at smoke size: its serve, serve
-check, claim, control-plane, train and train check phases run the port's plain versions
+check, claim, control-plane, spmd, train and train check phases run the port's plain versions
 here (the kernel phase and the profiles need the card), and main() refuses
 to run without a card."""
 import importlib.util
 import json
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -624,3 +625,62 @@ def test_kernels_line_picks_each_runs_rows(chip_smoke):
                 and e["name"] == "decode_attention"]
     assert [(e["launches"], e["launches_share"]) for e in seamless] == \
         [(5952, "1/2"), (5952, "1/2")]
+
+
+def test_spmd_phase_on_cpu(chip_smoke, capsys, monkeypatch):
+    """The spmd phase at smoke size: 4 gloo ranks on the CPU on a (2, 2)
+    mesh, under the full granite config's rules (TP + EP + FSDP): finite
+    losses, the train check against a second CPU mesh, the serve and its
+    check against the unsharded model, each kernel's wrapper on the mesh
+    against the whole call; the record carries what the card fills in."""
+    # the ranks are spawned: they import the script by its name
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    res = chip_smoke.phase_spmd(
+        "cpu", smoke=True, layers=2, steps=2, seq_len=32, check_seq=32,
+        prompt_len=12, decode_steps=3, timeout=240)
+    assert res["ranks"] == 4 and res["backend"] == "gloo"
+    assert res["mesh"] == {"data": 2, "model": 2}
+    train = res["train"]
+    assert len(train["losses"]) == 2 and np.isfinite(train["losses"]).all()
+    assert train["collective_host_ms"] > 0
+    chk = res["train_check"]
+    assert chk["loss"][0] == pytest.approx(chk["loss"][1], rel=1e-6)
+    assert chk["route_decisions"] > 0
+    serve = res["serve"]
+    assert serve["check"]["capacity_factor"] == 2.0   # 4 experts, top 2
+    assert len(serve["check"]["steps"]) == 4
+    # the fp32 pass holds the decode's routing to ROUTE_FLIPS, the served
+    # (bf16 decode) pass to a share of its decisions
+    fp32 = serve["check"]["fp32"]
+    assert len(fp32["steps"]) == 4
+    assert fp32["decode_route_decisions"] > 0
+    assert fp32["decode_route_differences_limit"] == \
+        chip_smoke.ROUTE_FLIPS["min"]
+    assert serve["check"]["decode_route_differences_limit"] == \
+        chip_smoke.SPMD_DECODE_ROUTE_SHARE * \
+        serve["check"]["decode_route_decisions"]
+    assert serve["launches"] == {"flash_attention": 0, "decode_attention": 0}
+    kernels = {r["kernel"]: r for r in res["kernels_alone"]}
+    assert sorted(kernels) == ["decode_attention", "flash_attention",
+                               "rglru_scan", "ssd_scan"]
+    # heads (channels) over "model", rows over "data"
+    assert kernels["flash_attention"]["placements"] == [
+        "(Shard(dim=0), Shard(dim=2))"]
+    assert all(r["bit_identical"] for r in kernels.values())
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == ["spmd_rank"] * 4 + ["spmd"]
+
+
+def test_spmd_shapes_are_each_ranks(chip_smoke):
+    """The kernel rows of the spmd runs: granite's 24/8 heads split over
+    "model" (12/4 a rank), one share each."""
+    from repro_torch.configs import get_config
+    shapes = chip_smoke.spmd_shapes(get_config("granite-moe-3b-a800m"))
+    assert {(k, a) for k, a, _, _ in shapes} == {
+        ("flash_attention", chip_smoke.SPMD_TRAIN),
+        ("flash_attention_bwd", chip_smoke.SPMD_TRAIN),
+        ("flash_attention", chip_smoke.SPMD_SERVE),
+        ("decode_attention", chip_smoke.SPMD_SERVE)}
+    for _, _, share, kw in shapes:
+        assert share == 1 and (kw["hq"], kw["hkv"]) == (12, 4)

@@ -114,3 +114,47 @@ def test_port_replica_runs_with_jax_repro_and_torch_blocked(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "replicas ran" in out.stdout
+
+
+def test_port_trains_and_serves_sharded_with_jax_blocked():
+    """The multi-device modules (``sharding``, ``launch/mesh.py``,
+    ``launch/shardrules.py``, ``data/sharding.py``, the ``local_map``
+    wrappers and ``moe_ffn_ep``) with jax and the reference unimportable:
+    a gloo process group of one rank on the CPU, a 1 x 1 mesh, one sharded
+    train step of the smoke granite and a sharded prefill and decode
+    step."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import dataclasses, torch\n"
+        "from repro_torch.configs import SHAPES, get_config, smoke_config\n"
+        "from repro_torch.data.sharding import place_batch\n"
+        "from repro_torch.launch import shardrules as SR\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "from repro_torch.launch.steps import (init_train_state,\n"
+        "    make_prefill_step, make_serve_step, make_train_step)\n"
+        "arch = 'granite-moe-3b-a800m'\n"
+        "cfg = smoke_config(arch)\n"
+        "mesh = make_host_mesh('cpu')\n"
+        "shape = dataclasses.replace(SHAPES['train_4k'], seq_len=16,\n"
+        "                            global_batch=2)\n"
+        "rules = SR.make_rules(get_config(arch), shape, mesh)\n"
+        "state = init_train_state(cfg, torch.Generator().manual_seed(0),\n"
+        "                         rules=rules, device='cpu')\n"
+        "tok = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32)\n"
+        "batch = {'tokens': tok, 'labels': tok}\n"
+        "batch = place_batch(batch, SR.batch_shardings(cfg, rules, batch))\n"
+        "state, met = make_train_step(cfg, rules)(state, batch, {'lr': 1e-3})\n"
+        "assert torch.isfinite(torch.as_tensor(float(met['loss'])))\n"
+        "nxt, cache = make_prefill_step(cfg, rules, 20)(state['params'],\n"
+        "                                               {'tokens': tok})\n"
+        "nxt, cache, lp = make_serve_step(cfg, rules)(state['params'], nxt,\n"
+        "                                             cache)\n"
+        "print('sharded', tuple(nxt.shape), type(cache['layers']['k'])\n"
+        "      .__name__)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "sharded (2, 1) DTensor" in out.stdout

@@ -102,6 +102,23 @@ Phases, each printing JSON lines:
      and seamless at full width and depth (batch 8 x 2048; seamless: 2,048
      frames and 256 decoder tokens), each checked on a 2-layer fp32 cut
      with one AdamW step;
+  4b. dryrun (``phase_dryrun``; its processes start with the script and
+     count on the host's cores beside the card's phases, on meta tensors,
+     the card untouched): ``python -m repro_torch.launch.dryrun`` for
+     qwen2-0.5b and granite-moe-3b-a800m ``train_4k`` on the single-pod
+     mesh, full width and depth at world 256 on the fake process group
+     (status ok, 256 devices; per device: FLOPs, bytes, collectives by
+     kind, the memory record); an MFU line for each train run above: the
+     analytic model FLOPs of its step (``analysis/roofline.py``, at its
+     cut depth, sequence and batch) over its steady seconds a step at the
+     card's bf16 peak (``configs.H100_SXM``), beside the FLOPs counted on
+     one device (the probe at two depths) and their ratio; the dry run's
+     per-device memory estimate of the qwen2-0.5b train run (one device,
+     chunked attention) against the card's peak of that run (ratio within
+     ``MEM_RATIO_BOUNDS``); then the four example twins
+     (``examples/torch_*.py``) on the card, a few steps each, each
+     launching its kernels (flash; decode in the serve twin, ``wq_claim``
+     in the three train twins);
   5. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes (``ssd_scan`` and ``rglru_scan`` also at a
      ragged length, in bf16, and in a slow-decay case where the state
@@ -152,6 +169,7 @@ import dataclasses
 import fractions
 import functools
 import gc
+import io
 import json
 import os
 import shutil
@@ -165,7 +183,10 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.analysis.roofline import (analytic_model_flops,  # noqa: E402
+                                           count_cell, probe)
+from repro_torch.configs import (H100_SXM, ShapeConfig, get_config,  # noqa: E402
+                                 smoke_config)
 from repro_torch.core import SteeringEngine, WorkQueue  # noqa: E402
 from repro_torch.core.schema import Status  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_for  # noqa: E402
@@ -188,7 +209,7 @@ from repro_torch.kernels.wq_claim.kernel import wq_claim_fwd  # noqa: E402
 from repro_torch.kernels.wq_claim.ref import wq_claim_ref  # noqa: E402
 from repro_torch.launch.steps import (cast_params, copy_params,  # noqa: E402
                                       init_train_state, loss_and_grads,
-                                      make_train_step)
+                                      make_train_step, shape_cells)
 from repro_torch.models.moe import MoE  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.transformer import hybrid_counts  # noqa: E402
@@ -269,9 +290,9 @@ TRAIN_GRAD_TOL_BY_NAME = {"mixer.A_log": 1e-2}
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W);
 # "tf32" is the tensor cores' TF32 rate, which the 3xTF32 products of the
 # SSD scan and of the fp32 flash attention (forward and backward) run at
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 67e12,
-            "tf32": 495e12}
+HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: H100_SXM.peak_flops_bf16,
+            torch.int32: 67e12, "tf32": 495e12}
 
 SRC = {"wq_claim": "src/repro_torch/csrc/wq_claim.cu",
        "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -3040,6 +3061,220 @@ def _spmd_rows(dev, rng, gcfg) -> list:
             for k, arch, share, kw in spmd_shapes(gcfg)]
 
 
+# ------------------------------------------------------------ phase dryrun
+# the dry run's cells (``python -m repro_torch.launch.dryrun``, one process
+# each: the fake process group is process-wide) at the single-pod world
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("granite-moe-3b-a800m",
+                                             "train_4k"))
+DRYRUN_WORLD = 256
+# the background counts start with the script and are read after the train
+# phases; past this the phase fails
+DRYRUN_TIMEOUT_S = 900
+# the dry run's per-device memory estimate of the qwen2-0.5b train run
+# (world 1, meta, chunked attention) over the card's peak of the same run
+# (flash): only a non-finite ratio or one outside these bounds fails
+MEM_RATIO_BOUNDS = (0.5, 4.0)
+# the example twins on the card: their arguments (a few steps each) and
+# the kernels each must launch
+TWINS = {"torch_quickstart": (["--steps", "6"],
+                              ("flash_attention", "flash_attention_bwd",
+                               "wq_claim")),
+         # the serve executor's slots claim one row each on the host
+         "torch_serve_continuous_batching": ([], ("flash_attention",
+                                                  "decode_attention")),
+         "torch_parameter_sweep_steering": (["--steps", "4"],
+                                            ("flash_attention", "wq_claim")),
+         "torch_fault_tolerance_demo": ([], ("flash_attention", "wq_claim"))}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def train_spec(cfg, seq_len: int, batch: int, *, memory: bool = False,
+               smoke: bool = False) -> dict:
+    """One train run, as :func:`world1_counts` takes it."""
+    return {"arch": cfg.name, "layers": cfg.num_layers, "seq_len": seq_len,
+            "batch": batch, "memory": memory, "smoke": smoke}
+
+
+def _spec_cfg(spec: dict):
+    base = smoke_config(spec["arch"]) if spec["smoke"] else \
+        get_config(spec["arch"])
+    return dataclasses.replace(base, num_layers=spec["layers"])
+
+
+def world1_counts(specs: list) -> dict:
+    """For each train run: its FLOPs counted on one device (the roofline
+    probe at two depths on meta tensors, extrapolated to the run's depth)
+    and, where ``memory`` is set, the memory record of a count at full
+    depth with chunked attention (the dry run's schedule). By arch."""
+    out = {}
+    for spec in specs:
+        t0 = time.perf_counter()
+        cfg = _spec_cfg(spec)
+        shape = ShapeConfig("smoke", spec["seq_len"], spec["batch"], "train")
+        res = {"counted_flops": probe(cfg, shape)["total"]["flops"]}
+        if spec["memory"]:
+            res["memory"] = count_cell(shape_cells(
+                dataclasses.replace(cfg, attn_impl="chunked"),
+                shape))["memory"]
+        res["seconds"] = time.perf_counter() - t0
+        out[spec["arch"]] = res
+    return out
+
+
+def _cpu_env() -> dict:
+    # the counts run on meta tensors: no process of theirs touches the card
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                CUDA_VISIBLE_DEVICES="")
+
+
+def start_dryrun(cells, groups, out_dir: str) -> dict:
+    """Starts the dry run's processes, which run beside the card's phases
+    (the host's cores are otherwise idle there): one per dry-run cell, and
+    one per group of train runs for :func:`world1_counts`. Each writes its
+    output to a log file in ``out_dir`` (a pipe left unread until the
+    phase would stall it)."""
+    os.makedirs(out_dir, exist_ok=True)
+    code = ("import json, sys; sys.path.insert(0, sys.argv[2]); "
+            "import chip_smoke; print('JSON' + json.dumps("
+            "chip_smoke.world1_counts(json.loads(sys.argv[1]))))")
+    jobs = [("cell", (arch, shape),
+             ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+              shape, "--mesh", "single", "--out", out_dir])
+            for arch, shape in cells]
+    jobs += [("world1", [s["arch"] for s in specs],
+              ["-c", code, json.dumps(specs), ROOT]) for specs in groups]
+    procs = []
+    for i, (kind, what, argv) in enumerate(jobs):
+        log = os.path.join(out_dir, f"{kind}{i}.log")
+        with open(log, "w") as f:
+            procs.append((kind, what, log, subprocess.Popen(
+                [sys.executable] + argv, cwd=ROOT, env=_cpu_env(), stdout=f,
+                stderr=subprocess.STDOUT)))
+    return {"procs": procs, "out": out_dir, "t0": time.perf_counter()}
+
+
+def stop_dryrun(bg: dict) -> None:
+    for *_, p in bg["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _finish(bg: dict, log: str, p) -> str:
+    left = DRYRUN_TIMEOUT_S - (time.perf_counter() - bg["t0"])
+    try:
+        p.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        stop_dryrun(bg)
+        raise AssertionError(f"the dry run's counts took over "
+                             f"{DRYRUN_TIMEOUT_S} s")
+    with open(log) as f:
+        out = f.read()
+    check(p.returncode == 0, f"dry-run process failed: {out[-3000:]}")
+    return out
+
+
+def phase_dryrun(bg: dict, runs: list, mem_run, device) -> dict:
+    """The dry run's results, read after the train phases: (a) each cell's
+    record at world 256 (``ok``, 256 devices; its counts, bytes, memory
+    and seconds); (b) an MFU line for each train run (``runs``: (config,
+    the train phase's result)): the analytic model FLOPs of its step over
+    its steady seconds a step at the card's bf16 peak, beside the FLOPs
+    counted on one device and their ratio; (c) the memory estimate of
+    ``mem_run``'s run against the card's peak of it; then the example
+    twins on ``device``."""
+    t_phase = time.perf_counter()
+    world1, cells = {}, []
+    for kind, what, log, p in bg["procs"]:
+        out = _finish(bg, log, p)
+        if kind == "world1":
+            line = [x for x in out.splitlines() if x.startswith("JSON")][-1]
+            world1.update(json.loads(line[4:]))
+            continue
+        arch, shape = what
+        rec = json.loads(open(os.path.join(
+            bg["out"], f"{arch}__{shape}__pod_16x16.json")).read())
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: "
+              f"{rec['status']} {rec.get('traceback', '')[-2000:]}")
+        check(rec["num_devices"] == DRYRUN_WORLD,
+              f"dry run {arch} {shape}: {rec['num_devices']} devices")
+        res = {"phase": "dryrun", "arch": arch, "shape": shape,
+               "mesh": rec["mesh"], "num_devices": rec["num_devices"],
+               "build_s": rec["lower_s"], "count_s": rec["compile_s"],
+               "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+               "transcendentals": rec["transcendentals"],
+               "collectives": rec["collectives"], "memory": rec["memory"]}
+        emit(res)
+        cells.append(res)
+    mfu = []
+    for cfg, r in runs:
+        shape = ShapeConfig("smoke", r["seq_len"], r["batch"], "train")
+        model = analytic_model_flops(cfg, shape)
+        s_step = r["steady_s_per_step"]
+        counted = world1[cfg.name]["counted_flops"]
+        line = {"phase": "mfu", "arch": cfg.name, "layers": cfg.num_layers,
+                "seq_len": r["seq_len"], "batch": r["batch"],
+                "s_per_step": s_step, "model_flops": model,
+                "mfu": model / (s_step * H100_SXM.peak_flops_bf16),
+                "counted_flops": counted, "useful": model / counted,
+                "count_s": world1[cfg.name]["seconds"]}
+        check(bool(np.isfinite(line["mfu"])) and line["mfu"] > 0,
+              f"{cfg.name} mfu {line['mfu']}")
+        emit(line)
+        mfu.append(line)
+    cfg, r = mem_run
+    est = world1[cfg.name]["memory"]["per_device_total"]
+    meas = r["peak_mem_bytes"]
+    mem = {"phase": "dryrun_memory", "arch": cfg.name,
+           "seq_len": r["seq_len"], "batch": r["batch"],
+           "estimate": world1[cfg.name]["memory"],
+           "per_device_total": est, "max_memory_allocated": meas,
+           "ratio": est / meas if meas else None}
+    if meas is not None:
+        lo, hi = MEM_RATIO_BOUNDS
+        check(bool(np.isfinite(mem["ratio"])) and lo <= mem["ratio"] <= hi,
+              f"{cfg.name} memory estimate {est} / card {meas} = "
+              f"{mem['ratio']}")
+    emit(mem)
+    twins = phase_twins(device)
+    res = {"phase": "dryrun_done", "cells": len(cells), "mfu": len(mfu),
+           "background_s": time.perf_counter() - bg["t0"],
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return {"cells": cells, "mfu": mfu, "memory": mem, "twins": twins}
+
+
+def phase_twins(device) -> list:
+    """The example twins (``examples/torch_*.py``) on ``device`` at their
+    default sizes, a few steps each, their output kept; on the card each
+    must launch its kernels (the counts read from its run alone)."""
+    import importlib.util
+    on_card = torch.device(device).type == "cuda"
+    out = []
+    for name, (argv, kernels) in TWINS.items():
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv + ["--device", str(device)])
+        sync(device)
+        counts = launch_counts()
+        res = {"phase": "twin", "example": name, "device": str(device),
+               "seconds": time.perf_counter() - t0,
+               "launches": {k: counts.get(k, 0) for k in kernels},
+               "last_line": buf.getvalue().strip().splitlines()[-1]}
+        if on_card:
+            for k in kernels:
+                check(counts.get(k, 0) > 0, f"{name} launched no {k}")
+        emit(res)
+        out.append(res)
+    return out
+
+
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3058,6 +3293,52 @@ def main() -> int:
     gcfg, vcfg, ecfg = (get_config(a) for a in
                         ("granite-moe-3b-a800m", "qwen2-vl-2b",
                          "seamless-m4t-large-v2"))
+    # the SSM and hybrid families: mamba2-1.3b at full width and depth;
+    # recurrentgemma-9b at full width, its depth cut (the record says so);
+    # the MoE, VLM and enc-dec families: qwen2-vl-2b and seamless at full
+    # width and depth, granite at full width, its depth cut
+    hcut = dataclasses.replace(hcfg, num_layers=HYBRID_TRAIN_LAYERS)
+    gcut = dataclasses.replace(gcfg, num_layers=MOE_TRAIN_LAYERS)
+    ng, nt = hybrid_counts(hcut)
+    family_train = (
+        (scfg, {}, {"prefixes": ("layers.0.mixer.",)}),
+        (hcut, {"seq_len": 4096, "batch": 4,
+                "max_peak": HYBRID_TRAIN_MAX_PEAK_BYTES,
+                "reduced": f"depth {hcfg.num_layers} -> "
+                           f"{HYBRID_TRAIN_LAYERS} layers ({ng} groups + "
+                           f"{nt} tail): the full depth's parameters "
+                           f"with AdamW do not fit one card"},
+         {"layers": len(hcfg.rglru.pattern), "batch": 1, "step": False}),
+        (gcut, {"max_peak": MOE_TRAIN_MAX_PEAK_BYTES,
+                "reduced": f"depth {gcfg.num_layers} -> "
+                           f"{MOE_TRAIN_LAYERS} layers: the full depth's "
+                           f"3.90 B stored parameters with AdamW peak "
+                           f"past {MOE_TRAIN_MAX_PEAK_BYTES / 1e9:.0f} "
+                           f"GB"},
+         {"prefixes": ("layers.0.attn.", "layers.0.moe."),
+          "batch": 4}),    # one row to each of its 4 microbatches
+        (vcfg, {}, {}),
+        (ecfg, {}, {"prefixes": ("encoder.0.", "decoder.0.")}))
+    # the dry run's counts run on the host's idle cores beside the card's
+    # phases, from the start: the two cells, and the train runs' counts on
+    # one device in three groups (the SSM's and the hybrid's sequential
+    # plain scans take the longest on meta tensors)
+    spec = {c.name: train_spec(c, kw.get("seq_len", 2048),
+                               kw.get("batch", 8))
+            for c, kw, _ in ((cfg, {}, {}),) + family_train}
+    spec[cfg.name]["memory"] = True
+    bg = start_dryrun(DRYRUN_CELLS, [
+        [spec[c.name] for c in (cfg, gcut, vcfg, ecfg)], [spec[scfg.name]],
+        [spec[hcut.name]]], os.path.join(ROOT, "build", "dryrun"))
+    try:
+        return _main(dev, t_start, smi, cfg, scfg, hcfg, gcfg, vcfg, ecfg,
+                     family_train, bg)
+    finally:
+        stop_dryrun(bg)
+
+
+def _main(dev, t_start, smi, cfg, scfg, hcfg, gcfg, vcfg, ecfg, family_train,
+          bg) -> int:
     launches = {}
     for c in (cfg, scfg, hcfg):
         serve = phase_serve(c, dev)
@@ -3103,44 +3384,23 @@ def main() -> int:
     del spmd
     train = phase_train(cfg, dev)
     launches[f"{cfg.name} train"] = train["result"]["launches"]
+    runs = [(cfg, train["result"])]
     phase_train_profile(train["executor"])
     train["executor"].close()
     del train
     _free()
     phase_train_check(cfg, dev)
-    # the SSM and hybrid families: mamba2-1.3b at full width and depth;
-    # recurrentgemma-9b at full width, its depth cut (the record says so);
-    # the MoE, VLM and enc-dec families: qwen2-vl-2b and seamless at full
-    # width and depth, granite at full width, its depth cut
-    hcut = dataclasses.replace(hcfg, num_layers=HYBRID_TRAIN_LAYERS)
-    gcut = dataclasses.replace(gcfg, num_layers=MOE_TRAIN_LAYERS)
-    ng, nt = hybrid_counts(hcut)
-    for c, kw, check_kw in (
-            (scfg, {}, {"prefixes": ("layers.0.mixer.",)}),
-            (hcut, {"seq_len": 4096, "batch": 4,
-                    "max_peak": HYBRID_TRAIN_MAX_PEAK_BYTES,
-                    "reduced": f"depth {hcfg.num_layers} -> "
-                               f"{HYBRID_TRAIN_LAYERS} layers ({ng} groups + "
-                               f"{nt} tail): the full depth's parameters "
-                               f"with AdamW do not fit one card"},
-             {"layers": len(hcfg.rglru.pattern), "batch": 1, "step": False}),
-            (gcut, {"max_peak": MOE_TRAIN_MAX_PEAK_BYTES,
-                    "reduced": f"depth {gcfg.num_layers} -> "
-                               f"{MOE_TRAIN_LAYERS} layers: the full depth's "
-                               f"3.90 B stored parameters with AdamW peak "
-                               f"past {MOE_TRAIN_MAX_PEAK_BYTES / 1e9:.0f} "
-                               f"GB"},
-             {"prefixes": ("layers.0.attn.", "layers.0.moe."),
-              "batch": 4}),    # one row to each of its 4 microbatches
-            (vcfg, {}, {}),
-            (ecfg, {}, {"prefixes": ("encoder.0.", "decoder.0.")})):
+    for c, kw, check_kw in family_train:
         train = phase_train(c, dev, **kw)
         launches[f"{c.name} train"] = train["result"]["launches"]
+        runs.append((c, train["result"]))
         phase_train_profile(train["executor"])
         train["executor"].close()
         del train
         _free()
         phase_train_check(c, dev, **check_kw)
+    phase_dryrun(bg, runs, runs[0], dev)
+    _free()
     kernels = phase_kernels(cfg, scfg, hcfg, (gcfg, vcfg, ecfg), dev,
                             launches)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

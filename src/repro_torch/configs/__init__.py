@@ -6,8 +6,8 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (
     FAMILY_DENSE, FAMILY_ENCDEC, FAMILY_HYBRID, FAMILY_MOE, FAMILY_SSM,
-    FAMILY_VLM, SUBQUADRATIC_FAMILIES, MULTI_POD, SHAPES, SINGLE_POD,
-    MeshConfig, ModelConfig, MoEConfig, RGLRUConfig,
+    FAMILY_VLM, SUBQUADRATIC_FAMILIES, MULTI_POD, SHAPES, SINGLE_POD, H100_SXM,
+    HardwareConfig, MeshConfig, ModelConfig, MoEConfig, RGLRUConfig,
     ShapeConfig, SSMConfig,
 )
 
@@ -87,9 +87,9 @@ def smoke_config(arch: str) -> ModelConfig:
 
 
 __all__ = [
-    "ARCHS", "ARCH_IDS", "SHAPES", "SINGLE_POD", "MULTI_POD",
+    "ARCHS", "ARCH_IDS", "SHAPES", "SINGLE_POD", "MULTI_POD", "H100_SXM",
     "get_config", "smoke_config", "cell_status",
-    "ModelConfig", "ShapeConfig", "MeshConfig",
+    "ModelConfig", "ShapeConfig", "MeshConfig", "HardwareConfig",
     "MoEConfig", "SSMConfig", "RGLRUConfig",
     "FAMILY_DENSE", "FAMILY_MOE", "FAMILY_SSM", "FAMILY_HYBRID",
     "FAMILY_ENCDEC", "FAMILY_VLM",

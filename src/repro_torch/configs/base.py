@@ -196,5 +196,26 @@ SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
 MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 
 
+# ---------------------------------------------------------------------------
+# Hardware
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HardwareConfig:
+    peak_flops_bf16: float          # per card, dense
+    hbm_bandwidth: float            # bytes/s per card
+    ici_bandwidth: float            # bytes/s per card into its links
+    hbm_bytes: int
+
+
+# NVIDIA H100 SXM5, as ``nvidia-smi`` names it: "NVIDIA H100 80GB HBM3",
+# power limit 700.00 W. NVIDIA's data sheet: 989 TFLOP/s dense bf16, 3.35
+# TB/s of HBM3, NVLink 4 at 18 links x 25 GB/s in each direction. The
+# ``ici_bandwidth`` is NVLink's, which joins the cards of one node only: a
+# 256- or 512-rank mesh crosses nodes on some of its axes, where the links
+# are slower, so its collective term is a lower bound.
+H100_SXM = HardwareConfig(peak_flops_bf16=989e12, hbm_bandwidth=3.35e12,
+                          ici_bandwidth=450e9, hbm_bytes=80 * 2**30)
+
+
 def to_json(cfg: Any) -> str:
     return json.dumps(dataclasses.asdict(cfg), indent=2)

@@ -4,6 +4,7 @@ A CUDA tensor goes to the hand-written kernel (or the call raises); a CPU
 tensor goes to the plain PyTorch version. ``kv_len`` is one int32 value as
 a tensor on q's device (the cache's ``idx`` plus one): the kernel reads it
 there, so the call adds no host sync.
+A meta tensor (the dry run's count) takes the CPU's route.
 """
 from __future__ import annotations
 
@@ -20,6 +21,6 @@ def decode_attention(q, k, v, *, kv_len, window: int = 0):
         return decode_attention_fwd(q.contiguous(), k.contiguous(),
                                     v.contiguous(), kv_len.reshape(1),
                                     window)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cpu", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     return decode_attention_ref(q, k, v, kv_len, window)

@@ -8,6 +8,7 @@ forward is the forward kernel with its row log-sum-exp and whose backward
 is the backward kernel; any other call launches the forward alone. The
 kernels take any S and Skv (tails are masked) and any dh up to 256, with
 the scale of the true dh.
+A meta tensor (the dry run's count) takes the CPU's route.
 """
 from __future__ import annotations
 
@@ -45,6 +46,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                                         or v.requires_grad):
             return FlashAttentionFn.apply(q, k, v, bool(causal), int(window))
         return flash_attention_fwd(q, k, v, causal=causal, window=window)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cpu", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return flash_attention_ref(q, k, v, causal=causal, window=window)

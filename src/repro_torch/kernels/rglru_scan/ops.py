@@ -8,6 +8,7 @@ an input that requires grad) goes through :class:`RGLRUScanFn`, whose
 forward is the forward kernel and whose backward is the backward kernel;
 any other call launches the forward alone. Any S and C: the kernels need no
 padding, unlike the reference's Pallas grid, which floor-divides both.
+A meta tensor (the dry run's count) takes the CPU's route.
 """
 from __future__ import annotations
 
@@ -40,6 +41,6 @@ def rglru_scan(a, u):
         if torch.is_grad_enabled() and (a.requires_grad or u.requires_grad):
             return RGLRUScanFn.apply(a, u)
         return rglru_scan_fwd(a, u)
-    if a.device.type != "cpu":
+    if a.device.type not in ("cpu", "meta"):
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
     return rglru_scan_ref(a, u)

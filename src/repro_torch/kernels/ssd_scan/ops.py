@@ -11,6 +11,7 @@ reference's dispatcher computes the per-chunk inclusive cumsum of ``da``
 (reset at every chunk boundary) before its kernel; here the kernels do that
 themselves, so both routes take ``da`` as it is. Any S: a ragged last chunk
 is masked, which equals the reference model's zero-dt padding.
+A meta tensor (the dry run's count) takes the CPU's route.
 """
 from __future__ import annotations
 
@@ -64,6 +65,6 @@ def ssd_scan(x, bmat, cmat, dt, da, *, chunk: int = 256,
         if torch.is_grad_enabled() and any(t.requires_grad for t in args):
             return SSDScanFn.apply(*args, int(chunk), int(heads_per_bc))
         return ssd_scan_fwd(*args, chunk=chunk, heads_per_bc=heads_per_bc)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cpu", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     return ssd_scan_ref(x, bmat, cmat, dt, da, heads_per_bc=heads_per_bc)

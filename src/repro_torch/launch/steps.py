@@ -29,17 +29,20 @@ the serve steps' tokens and log-probs come back whole on every rank.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.sharding import place_batch
 from repro_torch.interop import reference_leaves
 from repro_torch.launch import shardrules as SR
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import (build_model, decode_input_specs,
+                                         prefill_input_specs,
+                                         train_input_specs)
 from repro_torch.optim import apply_updates, init_opt
 from repro_torch.optim.clipping import global_norm
 from repro_torch.optim.compression import compress_grads, init_error
@@ -347,3 +350,50 @@ def abstract_train_state(cfg: ModelConfig, grad_compression: bool = False
     """The train state's shapes and dtypes on the meta device: nothing is
     allocated (the reference's ``jax.eval_shape`` dry run)."""
     return init_train_state(cfg, _MetaGenerator(), grad_compression)
+
+
+# ---------------------------------------------------------------------------
+# dry-run cells
+# ---------------------------------------------------------------------------
+def _abstract_params(cfg: ModelConfig, rules: Optional[Rules]) -> nn.Module:
+    """The params in ``cfg.dtype`` on meta (the copy the serve path holds),
+    laid out on the mesh with ``rules``."""
+    params = cast_params(build_model(cfg).init(_MetaGenerator()), cfg.dtype)
+    if rules is not None:
+        params = distribute_params(cfg, rules, params, "meta")
+    return params
+
+
+def shape_cells(cfg: ModelConfig, shape: ShapeConfig, mesh=None
+                ) -> functools.partial:
+    """Dispatch: train shapes the train step, decode shapes the serve step,
+    prefill shapes the prefill step, each on meta tensors (nothing is
+    allocated) laid out on ``mesh`` by ``SR.make_rules`` (None: one device,
+    no rules). Returns the step bound to its arguments, a callable of none
+    whose ``.args`` are those arguments (the reference's lowered step, its
+    arguments the ``in_shardings``' placed specs): the train state from
+    :func:`abstract_train_state`, the params in ``cfg.dtype`` for serve and
+    prefill, the inputs from ``models/registry.py``'s specs placed by the
+    batch's (and the cache's) shardings."""
+    rules = SR.make_rules(cfg, shape, mesh) if mesh is not None else None
+    if shape.kind == "train":
+        state = abstract_train_state(cfg)
+        if rules is not None:
+            state = distribute_train_state(cfg, rules, state["params"],
+                                           device="meta")
+        batch = place_inputs(cfg, rules, train_input_specs(cfg, shape))
+        return functools.partial(make_train_step(cfg, rules), state, batch,
+                                 {"lr": 1e-3})
+    params = _abstract_params(cfg, rules)
+    if shape.kind == "decode":
+        from repro_torch.models.transformer import place_cache
+        specs = decode_input_specs(cfg, shape)
+        with use_rules(rules):
+            cache = place_cache(cfg, specs["cache"])
+        tokens = place_inputs(cfg, rules, {"tokens": specs["tokens"]})
+        return functools.partial(make_serve_step(cfg, rules), params,
+                                 tokens["tokens"], cache)
+    # prefill: the decode cache allocated at prefill length + headroom
+    step = make_prefill_step(cfg, rules, shape.seq_len + 128)
+    return functools.partial(step, params, place_inputs(
+        cfg, rules, prefill_input_specs(cfg, shape)))

@@ -14,8 +14,11 @@ needs a gradient goes there too), and any other shape raises. A CPU tensor
 goes to :func:`sdpa_ref`, which plain autograd differentiates. The
 ring-buffer branch (sliding-window decode against a cache of exactly
 ``window`` slots) goes to the decode kernel's dispatcher on both devices
-(see :func:`attention`). ``cfg.attn_impl`` does not select the attention
-path in this port.
+(see :func:`attention`). ``cfg.attn_impl`` does not select the card's
+path: on tensors that are not on the card, ``"chunked"`` routes a prefill or
+a training pass from position 0 with no cache tail to
+:func:`repro_torch.models.chunked_attn.chunked_sdpa` (the reference's
+conditions), which the dry run counts on meta tensors.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.sharding import is_dtensor, shard
+from repro_torch.sharding import is_dtensor, shard, whole_unless_divides
 
 KVCache = Dict[str, torch.Tensor]  # {"k": [L,B,Smax,Hkv,Dh], "v": ..., "idx": int32 scalar}
 
@@ -50,6 +53,7 @@ class Attention(nn.Module):
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    x = whole_unless_divides(x, -1, n)
     return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
 
 
@@ -92,12 +96,14 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None):
+def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None,
+          attn_impl: str = "ref", q_chunk: int = 256, packed: bool = False):
     if is_dtensor(q):
         # on a mesh: this function on each rank's batch rows and heads
         def local(a, b, c, off, n):
             return _sdpa(a, b, c, causal=causal, window=window,
-                         q_offset=off, kv_len=n)
+                         q_offset=off, kv_len=n, attn_impl=attn_impl,
+                         q_chunk=q_chunk, packed=packed)
         return kops.attention_on_mesh(local, q, k, v, q_offset, kv_len)
     if q.device.type == "cuda":
         if q.shape[1] == 1 and kv_len is not None:                  # decode
@@ -116,8 +122,19 @@ def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None):
             f"no CUDA attention kernel for q {tuple(q.shape)} with "
             f"causal={causal}, window={window}, q_offset={q_offset!r}, "
             f"kv_len={'set' if kv_len is not None else None}")
+    if attn_impl == "chunked" and q.shape[1] > 1 and kv_len is None \
+            and isinstance(q_offset, int) and q_offset == 0:
+        from repro_torch.models.chunked_attn import chunked_sdpa
+        return chunked_sdpa(q, k, v, causal=causal, window=window,
+                            q_chunk=q_chunk, packed=packed)
     return sdpa_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
                     kv_len=kv_len)
+
+
+def _chunking(cfg: ModelConfig) -> dict:
+    """The config's attention schedule, as :func:`_sdpa` takes it."""
+    return {"attn_impl": cfg.attn_impl, "q_chunk": cfg.q_chunk,
+            "packed": cfg.packed_causal}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -165,7 +182,8 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if cache_kv is None:
-        out = _sdpa(q, k, v, causal=causal, window=window)
+        out = _sdpa(q, k, v, causal=causal, window=window,
+                    **_chunking(cfg))
         new_kv = (k, v)
     elif window and cache_kv[0].shape[1] == window:
         # rotating ring-buffer cache for sliding-window decode. The
@@ -187,7 +205,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         cache_write(cv, pos, v)
         kv_len = cache_idx + x.shape[1]
         out = _sdpa(q, ck, cv, causal=causal, window=window,
-                    q_offset=cache_idx, kv_len=kv_len)
+                    q_offset=cache_idx, kv_len=kv_len, **_chunking(cfg))
         new_kv = (ck, cv)
     return shard(p.o(_merge_heads(out)), "batch", None, None), new_kv
 
@@ -246,7 +264,7 @@ def cross_attention(p: Attention, x: torch.Tensor,
     once with the cache (every key is attended)."""
     q = _split_heads(L.dense(p.q, x), cfg.num_heads)
     k, v = enc_kv
-    out = _sdpa(q, k, v, causal=False, kv_len=kv_len)
+    out = _sdpa(q, k, v, causal=False, kv_len=kv_len, **_chunking(cfg))
     return p.o(_merge_heads(out))
 
 

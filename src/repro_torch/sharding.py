@@ -175,6 +175,30 @@ def shard(x: torch.Tensor, *logical: Logical) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def whole_unless_divides(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with tensor dim ``dim`` made whole over the mesh dims that split
+    it where their product does not divide ``n``: the dim is about to be
+    viewed as ``n`` parts (heads), which DTensor can split only in whole
+    parts per rank (24 heads over a "model" dim of 16, for example), and
+    GSPMD gathers there too. A plain tensor, or one that divides, as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dim %= x.ndim
+    mesh = x.device_mesh
+    split = [i for i, p in enumerate(x.placements)
+             if p.is_shard() and p.dim == dim]
+    total = 1
+    for i in split:
+        total *= mesh.size(i)
+    if n % total == 0:
+        return x
+    pl = [Replicate() if i in split else p
+          for i, p in enumerate(x.placements)]
+    return x.redistribute(mesh, pl)
+
+
 def flat_rows(x: torch.Tensor) -> torch.Tensor:
     """[..., D] -> [rows, D]. On a mesh, a DTensor is laid out on its first
     dim alone (whole over the mesh dims that split another) and flattened
@@ -302,6 +326,42 @@ def stage_gathers_through_host() -> None:
             return out.to(self.device)
         staged._staged = True
         setattr(funcol, name, staged)
+
+
+def init_fake_ranks(world: int) -> None:
+    """Joins ``torch.distributed``'s ``fake`` backend as rank 0 of
+    ``world`` ranks, alone in this process: every collective returns at
+    once with its output as allocated, so that a step can run on meta
+    tensors at the world of a production mesh (the dry run) while
+    DTensor issues the collectives each rank would. Process-wide: a
+    process joins one group. DTensor's moves of a shard from one dim to
+    another are sent to the all-to-all (:func:`shard_moves_by_alltoall`)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    shard_moves_by_alltoall()
+
+
+def shard_moves_by_alltoall() -> None:
+    """Makes DTensor move a ``Shard(i)`` to ``Shard(j)`` by the all-to-all
+    it issues on a CUDA mesh, on a CPU mesh too. On a CPU mesh DTensor
+    gathers the whole dim and keeps its own chunk, because gloo has no
+    all-to-all; the fake backend has one, and the count of a dry run on a
+    CPU mesh should be that of the card's mesh, where each rank sends its
+    payload once instead of receiving the whole."""
+    import torch.distributed.tensor._collective_utils as cu
+    import torch.distributed.tensor.placement_types as pt
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim,
+            mesh.get_group(mesh_dim).group_name)
+    for mod in (cu, pt):
+        if not hasattr(mod, "shard_dim_alltoall"):
+            raise RuntimeError(f"{mod.__name__} has no shard_dim_alltoall "
+                               f"(torch {torch.__version__})")
+        mod.shard_dim_alltoall = alltoall
 
 
 def free_port() -> int:

@@ -1,7 +1,7 @@
 """Rehearsal of chip_smoke.py on the CPU at smoke size: its serve, serve
-check, claim, control-plane, spmd, train and train check phases run the port's plain versions
-here (the kernel phase and the profiles need the card), and main() refuses
-to run without a card."""
+check, claim, control-plane, spmd, train, train check and dry-run phases
+run the port's plain versions here (the kernel phase and the profiles need
+the card), and main() refuses to run without a card."""
 import importlib.util
 import json
 import pathlib
@@ -684,3 +684,50 @@ def test_spmd_shapes_are_each_ranks(chip_smoke):
         ("decode_attention", chip_smoke.SPMD_SERVE)}
     for _, _, share, kw in shapes:
         assert share == 1 and (kw["hq"], kw["hkv"]) == (12, 4)
+
+
+def test_dryrun_phase_on_cpu(chip_smoke, capsys, tmp_path):
+    """The dry-run phase's wiring at smoke size: a counts process for one
+    train run started beside the work, read after it (counted FLOPs on one
+    device and the memory estimate), the MFU line from the run's seconds a
+    step, the memory line (no card peak on the CPU) and the example twins
+    on the CPU."""
+    from repro_torch.analysis.roofline import analytic_model_flops
+    from repro_torch.configs import H100_SXM, ShapeConfig
+    cfg = smoke_config("qwen2-0.5b")
+    spec = chip_smoke.train_spec(cfg, 64, 4, memory=True, smoke=True)
+    bg = chip_smoke.start_dryrun((), [[spec]], str(tmp_path))
+    run = {"seq_len": 64, "batch": 4, "steady_s_per_step": 0.5,
+           "peak_mem_bytes": None}
+    try:
+        out = chip_smoke.phase_dryrun(bg, [(cfg, run)], (cfg, run), "cpu")
+    finally:
+        chip_smoke.stop_dryrun(bg)
+    assert all(p.poll() is not None for *_, p in bg["procs"])
+    model = analytic_model_flops(cfg, ShapeConfig("smoke", 64, 4, "train"))
+    (mfu,) = out["mfu"]
+    assert mfu["mfu"] == model / (0.5 * H100_SXM.peak_flops_bf16)
+    assert mfu["counted_flops"] > 0
+    assert mfu["useful"] == model / mfu["counted_flops"]
+    mem = out["memory"]
+    assert mem["per_device_total"] > 0 and mem["ratio"] is None
+    assert [t["example"] for t in out["twins"]] == list(chip_smoke.TWINS)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["phase"] for x in lines] == \
+        ["mfu", "dryrun_memory"] + ["twin"] * 4 + ["dryrun_done"]
+
+
+def test_dryrun_specs_follow_the_train_runs(chip_smoke):
+    """The counts are those of the runs the train phases make: the run's
+    config at its cut depth and its sequence and batch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    hcut = dataclasses.replace(get_config("recurrentgemma-9b"),
+                               num_layers=chip_smoke.HYBRID_TRAIN_LAYERS)
+    spec = chip_smoke.train_spec(hcut, 4096, 4)
+    assert spec == {"arch": "recurrentgemma-9b", "layers": 8,
+                    "seq_len": 4096, "batch": 4, "memory": False,
+                    "smoke": False}
+    assert repr(chip_smoke._spec_cfg(spec)) == repr(hcut)
+    assert chip_smoke.PEAK_OPS[torch.bfloat16] == 989e12
+    assert chip_smoke.HBM_BYTES_PER_S == 3.35e12

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of repro_torch (nor chip_smoke.py)
-imports jax or the reference package, the port serves and trains with jax
-unimportable, and a replica process (and the primary that feeds it) runs
-with jax, the reference package and torch all unimportable."""
+"""The port stands alone: no module of repro_torch (nor chip_smoke.py, nor
+the example twins) imports jax or the reference package, the port serves
+and trains with jax unimportable, and a replica process (and the primary
+that feeds it) runs with jax, the reference package and torch all
+unimportable."""
 import ast
 import os
 import pathlib
@@ -14,7 +15,8 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_roots(path):

@@ -8,7 +8,6 @@ the master, (2) serialized full-queue scan, (3) ack round-trip.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -23,7 +22,6 @@ class CentralizedMaster:
         self.store = store or ColumnStore(capacity=capacity)
         self._next_task_id = 0
         self.total_messages = 0      # request + reply + ack per claim
-        self.busy_s = 0.0            # serialized master occupancy
 
     def add_tasks(self, activity_id: int, n: int, *, now: float = 0.0
                   ) -> np.ndarray:
@@ -47,19 +45,15 @@ class CentralizedMaster:
         as master occupancy (no two claims overlap — that is the bottleneck
         the paper measures two orders of magnitude of).
         """
-        t0 = time.perf_counter()
         status = self.store.col("status")              # full scan
         idx = np.nonzero(status == int(Status.READY))[0][:k]
         if len(idx):
             self.store.update(idx, status=int(Status.RUNNING),
                               worker_id=worker_id, start_time=now)
         self.total_messages += 3    # request, reply, ack (Fig. 6-B)
-        self.busy_s += time.perf_counter() - t0
         return idx
 
     def finish(self, idx: np.ndarray, *, now: float = 0.0) -> None:
-        t0 = time.perf_counter()
         self.store.update(np.asarray(idx), status=int(Status.FINISHED),
                           end_time=now)
         self.total_messages += 2    # completion + ack
-        self.busy_s += time.perf_counter() - t0

@@ -338,7 +338,6 @@ class ShardRouter:
                 thread_name_prefix="shard-scatter") \
             if num_shards > 1 else None
         self.last_scatter_wall_s: List[float] = [0.0] * num_shards
-        self.last_scatter_total_s = 0.0
         self._closed = False
 
     # ------------------------------------------------------------- routing
@@ -895,9 +894,7 @@ class ShardRouter:
                 delay_s=0.0 if shard_delay_s is None
                 else float(shard_delay_s[s]))
             return part, time.perf_counter() - t0
-        t0 = time.perf_counter()
         results = self._scatter_map(one, concurrent_scatter)
-        self.last_scatter_total_s = time.perf_counter() - t0
         self.last_scatter_wall_s = [w for _, w in results]
         parts = [p for p, _ in results]
         for s, p in enumerate(parts):

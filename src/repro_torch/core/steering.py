@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core.schema import Status
 from repro_torch.core.store import SnapshotView
 from repro_torch.core.workqueue import WorkQueue
@@ -398,7 +399,7 @@ class SteeringEngine:
             ctx = self.snapshot_scope(view)
         else:
             ctx = contextlib.nullcontext(self.wq.store)
-        with ctx as v:
+        with trace.span("steer.sweep"), ctx as v:
             return {
                 "q1": self.q1_recent_status_by_node(now),
                 "q3": self.q3_worst_nodes(now).tolist(),

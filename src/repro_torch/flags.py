@@ -7,6 +7,9 @@ for the CPU) instead of the host numpy fast-path (the queue samples the flag
 once in __init__; flip ``wq.device_claim`` to switch an existing queue).
 Defaults from the REPRO_WQ_DEVICE_CLAIM env var (off unless set to
 1/true/yes); ``device_claims()`` scopes the construction-time default.
+
+``TRACE`` — the default of :mod:`repro_torch.trace`'s process-wide switch,
+from the REPRO_TRACE env var (off unless set to 1/true/yes).
 """
 from __future__ import annotations
 
@@ -14,10 +17,14 @@ import contextlib
 import contextvars
 import os
 
+
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "").lower() in ("1", "true", "yes")
+
+
 _WQ_DEVICE_CLAIM = contextvars.ContextVar(
-    "repro_torch_wq_device_claim",
-    default=os.environ.get("REPRO_WQ_DEVICE_CLAIM", "").lower()
-    in ("1", "true", "yes"))
+    "repro_torch_wq_device_claim", default=_env_on("REPRO_WQ_DEVICE_CLAIM"))
+TRACE = _env_on("REPRO_TRACE")
 
 
 def wq_device_claim() -> bool:

@@ -10,7 +10,9 @@ the step accumulates microbatches, clips by the global norm (folded into
 the update as ``gscale``), optionally int8-compresses the gradients with
 error feedback, and applies AdamW or Adafactor. The state's tensors are
 updated in place (the reference returns new arrays) and the same state is
-returned.
+returned. With :mod:`repro_torch.trace` on, each microbatch's cast and
+loss is a ``step.forward`` span and its gradients a ``step.backward``
+span, and the clip and update one ``step.optimizer`` span.
 
 Serve: the reference casts the fp32 master params to ``cfg.dtype`` inside
 every serve step. Here the caller holds one copy of the params in
@@ -28,6 +30,7 @@ the serve steps' tokens and log-probs come back whole on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from typing import Any, Dict, Optional, Tuple
@@ -36,6 +39,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.sharding import place_batch
 from repro_torch.interop import reference_leaves
@@ -163,18 +167,25 @@ def loss_and_grads(cfg: ModelConfig, params: nn.Module,
     model = build_model(cfg)
     dt = getattr(torch, cfg.dtype)
     names, masters = zip(*params.named_parameters())
+    # the forward's span opens before the cast and closes as train_loss
+    # returns, inside the functional_call
+    forward = contextlib.ExitStack()
 
     def run(lm, b):
-        loss, metrics = model.train_loss(lm, b)
+        with forward:
+            loss, metrics = model.train_loss(lm, b)
         loss = full_tensor(loss)
-        grads = dict(zip(names, torch.autograd.grad(loss, masters)))
+        with trace.span("step.backward"):
+            grads = dict(zip(names, torch.autograd.grad(loss, masters)))
         return loss.detach(), {k: full_tensor(v).detach()
                                for k, v in metrics.items()}, grads
 
-    cast = {n: p.to(dt) if p.is_floating_point() else p
-            for n, p in zip(names, masters)}
-    with torch.enable_grad():
-        return functional_call(params, cast, (run, batch))
+    with forward:
+        forward.enter_context(trace.span("step.forward"))
+        cast = {n: p.to(dt) if p.is_floating_point() else p
+                for n, p in zip(names, masters)}
+        with torch.enable_grad():
+            return functional_call(params, cast, (run, batch))
 
 
 def _micro(batch: Dict[str, torch.Tensor], mb: int, i: int):
@@ -238,7 +249,7 @@ def make_train_step(cfg: ModelConfig, rules: Optional[Rules] = None,
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in mets]).mean()
                        for k in mets[0]}
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("step.optimizer"):
             gnorm = global_norm(grads)
             gscale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12),
                                  max=1.0)

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.risers_workflow import WorkflowConfig
 from repro_torch.core.replication import make_replicator
@@ -192,36 +193,44 @@ class TrainExecutor:
 
     # ---------------------------------------------------------------- tick
     def tick(self) -> Dict[str, float]:
-        """One scheduler tick: claim -> execute -> commit provenance."""
+        """One scheduler tick: claim -> execute -> commit provenance; each
+        part in its :mod:`repro_torch.trace` span (``tick.*``)."""
         now = time.time()
-        if self.router is not None:
-            # any drained shard refills from the richest sibling BEFORE
-            # claiming: the cross-shard stealing path
-            if (self.router.ready_counts()
-                    .reshape(self.router.num_shards, -1).sum(1) == 0).any():
-                self.router.rebalance(now=now)
-            claims = [(self.router.shards[s].wq, rows)
-                      for s, rows in self.router.claim_all(
-                          k=1, now=now).values()]
-        else:
-            claims = [(self.wq, rows)
-                      for rows in self.wq.claim_all(k=1, now=now).values()]
+        with trace.span("tick.claim"):
+            if self.router is not None:
+                # any drained shard refills from the richest sibling BEFORE
+                # claiming: the cross-shard stealing path
+                if (self.router.ready_counts()
+                        .reshape(self.router.num_shards, -1).sum(1)
+                        == 0).any():
+                    self.router.rebalance(now=now)
+                claims = [(self.router.shards[s].wq, rows)
+                          for s, rows in self.router.claim_all(
+                              k=1, now=now).values()]
+            else:
+                claims = [(self.wq, rows) for rows in
+                          self.wq.claim_all(k=1, now=now).values()]
         metrics_out: Dict[str, float] = {}
         for wq, rows in claims:
             for row in rows:
-                lr_scale = wq.store.col("in0")[row]
-                shard = int(wq.store.col("in1")[row])
-                batch = {k: torch.as_tensor(v, device=self.device)
-                         for k, v in batch_for(self.cfg, self.data_cfg,
-                                               shard).items()}
+                with trace.span("tick.batch"):
+                    lr_scale = wq.store.col("in0")[row]
+                    shard = int(wq.store.col("in1")[row])
+                    batch = {k: torch.as_tensor(v, device=self.device)
+                             for k, v in batch_for(self.cfg, self.data_cfg,
+                                                   shard).items()}
                 knobs = {"lr": float(np.float32(self.base_lr * lr_scale))}
                 t0 = time.time()
-                self.state, metrics = self.step_fn(self.state, batch, knobs)
-                loss = float(metrics["loss"])
-                gnorm = float(metrics["grad_norm"])
+                with trace.span("tick.step"):
+                    self.state, metrics = self.step_fn(self.state, batch,
+                                                       knobs)
+                with trace.span("tick.readback"):
+                    loss = float(metrics["loss"])
+                    gnorm = float(metrics["grad_norm"])
                 dt_s = time.time() - t0
-                wq.finish(np.asarray([row]), now=time.time(),
-                          domain_out=np.asarray([[loss, gnorm, dt_s]]))
+                with trace.span("tick.commit"):
+                    wq.finish(np.asarray([row]), now=time.time(),
+                              domain_out=np.asarray([[loss, gnorm, dt_s]]))
                 self.step += 1
                 rec = {"step": self.step, "loss": loss, "grad_norm": gnorm,
                        "s_per_step": dt_s}
@@ -229,49 +238,56 @@ class TrainExecutor:
                 metrics_out = rec
         if self.checkpointer and self.checkpoint_every \
                 and self.step and self.step % self.checkpoint_every == 0:
-            if self.router is not None:
-                self.router.sync_secondaries()
-                self.checkpointer.save(self.step, self.state,
-                                       router=self.router)
-            else:
-                self.checkpointer.save(self.step, self.state, self.wq)
-            self._maybe_compact_log()
+            with trace.span("tick.checkpoint"):
+                if self.router is not None:
+                    self.router.sync_secondaries()
+                    self.checkpointer.save(self.step, self.state,
+                                           router=self.router)
+                else:
+                    self.checkpointer.save(self.step, self.state, self.wq)
+                self._maybe_compact_log()
         if self._steer_future is not None and self._steer_future.done():
             self.last_steering = self._steer_future.result()
             metrics_out["steering"] = self.last_steering
             self._steer_future = None
         if self.steer_every and self.step % self.steer_every == 0 \
                 and self._steer_future is None:
-            # the steering tick doubles as the lease sweep: requeue every
-            # expired RUNNING claim before analyzing, so the sweep sees the
-            # recovered backlog (sharded runs reap per shard and the
-            # reclaimed rows feed rebalance)
-            self.reaped_total += self.reap(now=time.time())
-            if self.router is not None:
-                self._steer_future = self._submit_sharded_sweep()
-                return metrics_out
-            if self.replica is not None:
-                # catch the replica up to this tick's commits (a wire ship
-                # for "remote", in-process log replay for "replica"); the
-                # sync acked the replica's consumer offset, so compaction
-                # follows once a durable checkpoint anchors history
-                self.replica.sync()
-                self._maybe_compact_log()
-            if self.analyst == "remote":
-                # the sweep runs IN the replica process: the analyst
-                # thread only waits on the result pipe
-                self._steer_future = self._steer_pool.submit(
-                    self.replica.remote_sweep, time.time())
-            else:
-                # replica: sweep the caught-up shadow store; snapshot: a
-                # COW view of the live store at this tick's commits, read
-                # while the next ticks claim
-                view = self.replica.snapshot_view() \
-                    if self.replica is not None \
-                    else self.wq.store.snapshot_view()
-                self._steer_future = self._steer_pool.submit(
-                    self.steering.run_all, time.time(), view)
+            with trace.span("tick.steer_submit"):
+                self._submit_sweep()
         return metrics_out
+
+    def _submit_sweep(self) -> None:
+        """Start a steering sweep on the analyst thread at this tick's
+        commits."""
+        # the steering tick doubles as the lease sweep: requeue every
+        # expired RUNNING claim before analyzing, so the sweep sees the
+        # recovered backlog (sharded runs reap per shard and the
+        # reclaimed rows feed rebalance)
+        self.reaped_total += self.reap(now=time.time())
+        if self.router is not None:
+            self._steer_future = self._submit_sharded_sweep()
+            return
+        if self.replica is not None:
+            # catch the replica up to this tick's commits (a wire ship
+            # for "remote", in-process log replay for "replica"); the
+            # sync acked the replica's consumer offset, so compaction
+            # follows once a durable checkpoint anchors history
+            self.replica.sync()
+            self._maybe_compact_log()
+        if self.analyst == "remote":
+            # the sweep runs IN the replica process: the analyst
+            # thread only waits on the result pipe
+            self._steer_future = self._steer_pool.submit(
+                self.replica.remote_sweep, time.time())
+        else:
+            # replica: sweep the caught-up shadow store; snapshot: a
+            # COW view of the live store at this tick's commits, read
+            # while the next ticks claim
+            view = self.replica.snapshot_view() \
+                if self.replica is not None \
+                else self.wq.store.snapshot_view()
+            self._steer_future = self._steer_pool.submit(
+                self.steering.run_all, time.time(), view)
 
     def _submit_sharded_sweep(self) -> concurrent.futures.Future:
         """The router's scatter-gather sweep, pinned at one version vector

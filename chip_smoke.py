@@ -192,6 +192,10 @@ from repro_torch.core.schema import Status  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_for  # noqa: E402
 from repro_torch.flags import device_claims  # noqa: E402
 from repro_torch.kernels import launch_counts, library, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.cross_entropy.kernel import (  # noqa: E402
+    cross_entropy_bwd, cross_entropy_fwd)
+from repro_torch.kernels.cross_entropy.ref import (  # noqa: E402
+    cross_entropy_bwd_ref, cross_entropy_ref)
 from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
@@ -238,6 +242,17 @@ SSD_REL_TOL = 1e-4
 # sequential recurrence): 1e-4 of max |ref| per element of h, plus one bf16
 # step of the value for a bf16 h
 RGLRU_REL_TOL = 1e-4
+# the cross-entropy kernels against the plain chain: lse (its sum of
+# 2^(l log2 e - m) taken on the special-function unit, ~2 ulp a term, in
+# another order) and each gradient value (each side rounds the exp's
+# argument, up to ~40, to fp32 first: ~2.4e-6 of a small value each; then
+# once to the logits' dtype, plus one bf16 step of it for a bf16 gradient)
+# relative to their own size; the gold logit exactly
+XENT_LSE_REL_TOL, XENT_GRAD_REL_TOL = 2e-6, 1e-5
+# the loss chunks [B, chunk, V] of the benchmark's train cells (a task
+# there launches 2 cross-entropy forwards, the checkpoint's recompute, and
+# 1 backward a chunk, 8 chunks a task in each)
+XENT_BENCH_SHAPES = ((16, 256, 151936), (8, 256, 50288))
 # recurrentgemma-9b's weights are 51.5 GB (34.3 GB fp32 master, 17.2 GB bf16
 # decode copy); a second fp32 copy during the cast would pass this
 HYBRID_MAX_PEAK_BYTES = 56e9
@@ -301,7 +316,9 @@ SRC = {"wq_claim": "src/repro_torch/csrc/wq_claim.cu",
        "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
        "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd.cu",
        "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
-       "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan.cu"}
+       "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan.cu",
+       "cross_entropy": "src/repro_torch/csrc/cross_entropy.cu",
+       "cross_entropy_bwd": "src/repro_torch/csrc/cross_entropy.cu"}
 REPLACES = {"wq_claim": "src/repro/kernels/wq_claim/kernel.py:32",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:25",
             # no Pallas backward: XLA differentiates the reference's sdpa_ref
@@ -312,7 +329,10 @@ REPLACES = {"wq_claim": "src/repro/kernels/wq_claim/kernel.py:32",
             # associative scan of _rglru_core
             "ssd_scan_bwd": "src/repro/models/ssm.py:81",
             "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:20",
-            "rglru_scan_bwd": "src/repro/models/rglru.py:93"}
+            "rglru_scan_bwd": "src/repro/models/rglru.py:93",
+            # no Pallas kernel: XLA's logsumexp and gather of a loss chunk
+            "cross_entropy": "src/repro/models/transformer.py:259",
+            "cross_entropy_bwd": "src/repro/models/transformer.py:259"}
 
 
 def layers_of(cfg, kind: str) -> int:
@@ -357,12 +377,20 @@ SERVE_LAUNCHES = {
 }
 
 
-def train_launches(cfg, steps: int, ticks: int) -> dict:
-    """Kernels a train run launches: per step, microbatch and layer one
-    forward of the layer's kernel (two with remat: the backward recomputes
-    it) and one backward (flash for attention layers, the SSD scan for SSM
-    layers, the RG-LRU scan for rec layers); one claim kernel per tick's
-    claim_all (device claims on)."""
+def loss_labels(cfg, seq_len: int) -> int:
+    """The labels of a train row at ``seq_len``: S tokens, the enc-dec
+    decoder's max(8, S // 8) (as ``batch_for`` makes them)."""
+    return max(8, seq_len // 8) if cfg.family == "encdec" else seq_len
+
+
+def train_launches(cfg, steps: int, ticks: int, seq_len: int = 2048) -> dict:
+    """Kernels a train run at ``seq_len`` launches: per step, microbatch
+    and layer one forward of the layer's kernel (two with remat: the
+    backward recomputes it) and one backward (flash for attention layers,
+    the SSD scan for SSM layers, the RG-LRU scan for rec layers); per step,
+    microbatch and loss chunk two cross-entropy forwards (the chunk's
+    checkpoint recomputes it) and one backward; one claim kernel per
+    tick's claim_all (device claims on)."""
     per = steps * max(1, cfg.microbatches)
     out = {"wq_claim": ticks}
     for kind, name in (("attn", "flash_attention"), ("ssm", "ssd_scan"),
@@ -371,6 +399,9 @@ def train_launches(cfg, steps: int, ticks: int) -> dict:
         if n:
             out[name] = n * (2 if cfg.remat else 1)
             out[name + "_bwd"] = n
+    labels = loss_labels(cfg, seq_len)
+    n = labels // min(cfg.loss_chunk, labels) * per
+    out["cross_entropy"], out["cross_entropy_bwd"] = 2 * n, n
     return out
 
 
@@ -853,7 +884,7 @@ def phase_train(cfg, device, *, steps=6, workers=2, seq_len=2048, batch=8,
     wall = time.perf_counter() - t0
     counts = launch_counts()
     ticks = -(-steps // workers)
-    want = train_launches(cfg, steps, ticks)
+    want = train_launches(cfg, steps, ticks, seq_len)
     losses = [h["loss"] for h in hist]
     check(ex.wq.device_claim, "the train queue does not claim on the device")
     check(len(hist) == steps == ex.wq.counts()["FINISHED"],
@@ -1406,7 +1437,7 @@ def _sharded_train(cfg, device, *, seq_len, ckpt_dir) -> dict:
           and isinstance(ex.last_steering["version"], list),
           "no scatter-gather sweep ran")
     check(ck.latest_step() == steps, f"checkpoint {ck.latest_step()}")
-    want = train_launches(cfg, steps, 0)
+    want = train_launches(cfg, steps, 0, seq_len)
     want["wq_claim"] = launches["want"]
     if on_card:
         for k, n in counts.items():
@@ -1637,8 +1668,10 @@ def _spmd_train(spec, dev, mesh, rank) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     check(bool(np.isfinite(losses).all()), f"rank {rank} losses {losses}")
+    # the loss's vocabulary-split logits are DTensors: no cross-entropy
+    # kernel (models.transformer._vocab_split_terms)
     want = {k: v for k, v in train_launches(cfg, spec["steps"], 0).items()
-            if k != "wq_claim"}
+            if k not in ("wq_claim", "cross_entropy", "cross_entropy_bwd")}
     if dev.type == "cuda":
         for k, n in counts.items():
             check(n == want.get(k, 0), f"rank {rank}: {k} launches {n} != "
@@ -2766,6 +2799,101 @@ def _rglru_bwd_case(dev, case, b, s, c, slow, rng):
     return row
 
 
+def xent_ops_bytes(rows, v, dtype, backward=False):
+    """The forward reads each logit once and writes lse and gold (fp32)
+    and reads a label (int64) a row; 4 operations a logit (a max, an FMA,
+    an exp, an add). The backward reads each logit once and writes its
+    gradient once, and reads lse and a label a row; 4 operations a logit
+    (an FMA, an exp, a subtract, a multiply)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    n = rows * v
+    if backward:
+        return 4.0 * n, 2.0 * elt * n + 12.0 * rows
+    return 4.0 * n, elt * n + 16.0 * rows
+
+
+def xent_shape(cfg, batch: int, seq_len: int) -> tuple:
+    """The loss chunk [B, chunk, V] of a train run of ``batch`` rows at
+    ``seq_len``: a microbatch's rows, its labels' chunk, the vocabulary."""
+    return (batch // max(1, cfg.microbatches),
+            min(cfg.loss_chunk, loss_labels(cfg, seq_len)), cfg.vocab_size)
+
+
+def xent_runs(cfg, scfg, hcfg, fams) -> list:
+    """(run, loss chunk) of every train run that launches the
+    cross-entropy kernels (the spmd run's vocabulary-split logits do not):
+    the dense, SSM, hybrid (batch 4 x 4096 in its microbatches) and family
+    runs, and the control plane's sharded run."""
+    return [(f"{cfg.name} train", xent_shape(cfg, 8, 2048)),
+            (SHARDED_TRAIN, xent_shape(cfg, SHARDED_TRAIN_BATCH, 2048)),
+            (f"{scfg.name} train", xent_shape(scfg, 8, 2048)),
+            (f"{hcfg.name} train", xent_shape(hcfg, 4, 4096))] + \
+        [(f"{c.name} train", xent_shape(c, 8, 2048)) for c in fams]
+
+
+def _xent_case(dev, b, c, v, dtype, rng, backward=False):
+    """The cross-entropy forward (or backward, for one upstream value a
+    row as the loss's sum gives it) at a loss chunk [b, c, v] against the
+    plain chain, timed back to back, beside the plain chain and
+    ``torch.nn.functional.cross_entropy`` (its forward; for the backward,
+    its backward alone), which the port never calls."""
+    rows = b * c
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    logits = (4.0 * torch.randn(rows, v, generator=gen, device=dev)).to(dtype)
+    labels = torch.as_tensor(rng.integers(0, v, rows), device=dev)
+    lse, gold = cross_entropy_fwd(logits, labels)
+    want_lse, want_gold = cross_entropy_ref(logits, labels)
+    lse_err = float(((lse - want_lse).abs() / want_lse.abs()).max())
+    check(lse_err <= XENT_LSE_REL_TOL and torch.equal(gold, want_gold),
+          f"cross_entropy {[b, c, v]}: lse rel err {lse_err}, gold "
+          f"{torch.equal(gold, want_gold)}")
+    row = {"kernel": "cross_entropy", "shape": [b, c, v],
+           "dtype": str(dtype)[6:], "lse_rel_err": lse_err,
+           "max_abs_err": float((lse - want_lse).abs().max()),
+           "timing": "back to back"}
+    lib = torch.nn.functional.cross_entropy
+    if backward:
+        g = torch.ones((), device=dev).expand(rows)
+        fn = functools.partial(cross_entropy_bwd, logits, labels, lse, g)
+        got, want = fn(), cross_entropy_bwd_ref(logits, labels, want_lse, g)
+        tol = XENT_GRAD_REL_TOL * want.float().abs() + 1e-30
+        if dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * want.float().abs()
+        diff = (got.float() - want.float()).abs()
+        err = float((diff / tol).max())
+        check(err <= 1.0, f"cross_entropy_bwd {[b, c, v]}: err over tol "
+              f"{err}")
+        row.update(kernel="cross_entropy_bwd", err_over_tol=err,
+                   max_abs_err=float(diff.max()))
+        del got, want, tol, diff
+        leaf = logits.detach().requires_grad_()
+        loss = lib(leaf, labels, reduction="sum")
+        lib_fn = functools.partial(torch.autograd.grad, loss, leaf,
+                                   retain_graph=True)
+        plain_fn = functools.partial(cross_entropy_bwd_ref, logits, labels,
+                                     lse, g)
+    else:
+        fn = functools.partial(cross_entropy_fwd, logits, labels)
+        lib_fn = functools.partial(lib, logits, labels, reduction="sum")
+        plain_fn = functools.partial(cross_entropy_ref, logits, labels)
+    row.update(ms=time_ms(fn, 50), device_ms=device_ms(fn),
+               plain_ms=time_ms(plain_fn, 5, 1),
+               library_ms=time_ms(lib_fn, 20),
+               library_device_ms=device_ms(lib_fn))
+    ops, nbytes = xent_ops_bytes(rows, v, dtype, backward)
+    row.update(_bound(nbytes, ops, torch.float32))
+    return row
+
+
+def xent_rows(dev, rng, runs) -> list:
+    """The cross-entropy kernels' rows, forward and backward in bf16, at
+    each loss chunk of ``runs`` (:func:`xent_runs`) and of the benchmark's
+    train cells (``XENT_BENCH_SHAPES``), each shape once."""
+    shapes = dict.fromkeys([s for _, s in runs] + list(XENT_BENCH_SHAPES))
+    return [_xent_case(dev, *shape, torch.bfloat16, rng, backward=bw)
+            for shape in shapes for bw in (False, True)]
+
+
 def _earlier_rows(dev, rng, cfg, scfg, hcfg) -> list:
     """The rows of the dense, SSM and hybrid paths (``phase_kernels``)."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -2886,6 +3014,7 @@ def phase_kernels(cfg, scfg, hcfg, fams, device, launches: dict) -> dict:
     rng = np.random.default_rng(0)
     rows = _earlier_rows(dev, rng, cfg, scfg, hcfg)
     rows += _control_plane_rows(dev, rng, cfg)
+    rows += xent_rows(dev, rng, xent_runs(cfg, scfg, hcfg, fams))
     extra = _family_rows(dev, rng, fams) + _spmd_rows(dev, rng, fams[0])
     for r in rows + [r for r, _, _ in extra]:
         emit(r)
@@ -2936,6 +3065,11 @@ def kernels_line(cfg, scfg, hcfg, fams, rows, extra, launches) -> dict:
     # workers)
     main_shape += [("wq_claim", f"{c.name} train",
                     lambda r: r.get("arch") == train) for c in fams]
+    # the cross-entropy kernels in every train run that launches them, the
+    # row of its loss chunk
+    main_shape += [(k, a, lambda r, s=shape: r["shape"] == list(s))
+                   for a, shape in xent_runs(cfg, scfg, hcfg, fams)
+                   for k in ("cross_entropy", "cross_entropy_bwd")]
     main_shape = [(k, a, next(r for r in rows if r["kernel"] == k
                               and pick(r)), one)
                   for k, a, pick in main_shape]
@@ -2969,7 +3103,8 @@ def kernels_line(cfg, scfg, hcfg, fams, rows, extra, launches) -> dict:
     return {"kernels": out}
 
 
-_SHAPE_KEYS = ("shape_q", "shape_kv", "shape_cache", "kv_len", "causal",
+_SHAPE_KEYS = ("shape", "shape_q", "shape_kv", "shape_cache", "kv_len",
+               "causal",
                "window", "dtype", "lse", "case", "n", "workers", "k")
 # the enc-dec serve: 7 requests of cross_kv_len (4096) frames and one of
 # fewer, whose decode memory is zero-padded; a prompt of

@@ -9,6 +9,8 @@ from typing import Dict
 
 
 def _launchers():
+    from repro_torch.kernels.cross_entropy.kernel import (cross_entropy_bwd,
+                                                          cross_entropy_fwd)
     from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd, flash_attention_fwd)
@@ -20,7 +22,9 @@ def _launchers():
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention_fwd,
             "ssd_scan": ssd_scan_fwd, "ssd_scan_bwd": ssd_scan_bwd,
-            "rglru_scan": rglru_scan_fwd, "rglru_scan_bwd": rglru_scan_bwd}
+            "rglru_scan": rglru_scan_fwd, "rglru_scan_bwd": rglru_scan_bwd,
+            "cross_entropy": cross_entropy_fwd,
+            "cross_entropy_bwd": cross_entropy_bwd}
 
 
 def launch_counts() -> Dict[str, int]:

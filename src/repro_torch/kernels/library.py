@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 
 FLOAT32, BFLOAT16 = 0, 1          # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: FLOAT32, torch.bfloat16: BFLOAT16}
+LABEL64 = {torch.int32: 0, torch.int64: 1}   # cross_entropy.cu's labels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "ssd_scan_bwd_scratch_floats": ([_I] * 6, ctypes.c_longlong),
     "rglru_scan_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "rglru_scan_bwd_launch": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "cross_entropy_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "cross_entropy_bwd_launch": ([_P] * 4 + [_I, _P] + [_I] * 4 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

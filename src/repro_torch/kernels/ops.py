@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Tuple
 
+from repro_torch.kernels.cross_entropy.ops import cross_entropy  # noqa: F401
 from repro_torch.kernels.decode_attention.ops import \
     decode_attention as _decode_attention
 from repro_torch.kernels.flash_attention.ops import \

@@ -38,9 +38,9 @@ loop with one ``torch.utils.checkpoint`` per scan body when ``cfg.remat``
 (the reference's ``jax.checkpoint`` of its scan body: a dense, MoE, VLM or
 SSM layer, a hybrid group of (rec, rec, attn), a hybrid tail layer) and the
 sequence-chunked cross-entropy (:func:`chunked_xent`). On the card the
-scans and the attention differentiate through their backward kernels
-(``kernels.ops``' autograd Functions). The enc-dec family is
-``models/encdec.py``.
+scans, the attention and the loss's cross-entropy differentiate through
+their backward kernels (``kernels.ops``' autograd Functions). The enc-dec
+family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (FAMILY_DENSE, FAMILY_HYBRID, FAMILY_MOE,
                                       FAMILY_SSM, FAMILY_VLM, ModelConfig)
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -294,13 +295,17 @@ def _run_stack_train(cfg: ModelConfig, params: DecoderLM, x, *, positions,
 
 
 def _xent_chunk(xi: torch.Tensor, table: torch.Tensor, li: torch.Tensor):
-    logits = shard((xi @ table.T).float(), "batch", None, "model_vocab")
+    """The chunk's summed loss: on a mesh, the vocabulary slices' terms
+    joined (:func:`_vocab_split_terms`); else ``kernels.ops.cross_entropy``
+    of the logits as the GEMM gives them (the kernels on the card, which
+    compute in fp32 what the cast to fp32 gave; the plain fp32 chain on the
+    CPU)."""
+    logits = xi @ table.T
     if is_dtensor(logits):
-        logz, gold = _vocab_split_terms(logits, li)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
-    return torch.sum(logz - gold)
+        logz, gold = _vocab_split_terms(
+            shard(logits.float(), "batch", None, "model_vocab"), li)
+        return torch.sum(logz - gold)
+    return torch.sum(kops.cross_entropy(logits, li))
 
 
 def _vocab_split_terms(logits: torch.Tensor, labels: torch.Tensor):

@@ -173,7 +173,8 @@ def test_control_plane_phase_on_cpu(chip_smoke, tmp_path, capsys):
     train = res["train"]
     assert train["steps"] == 6 and len(train["losses"]) == 6
     assert train["launches"] == {"flash_attention": 0,
-                                 "flash_attention_bwd": 0, "wq_claim": 0}
+                                 "flash_attention_bwd": 0, "wq_claim": 0,
+                                 "cross_entropy": 0, "cross_entropy_bwd": 0}
     line = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert line["phase"] == "control_plane"
     assert not (tmp_path / "ckpt").exists()
@@ -210,7 +211,8 @@ def test_train_phases_on_cpu(chip_smoke, capsys):
     res = train["result"]
     assert res["steps"] == 4 and len(res["losses"]) == 4
     assert res["launches"] == {"flash_attention": 0,
-                               "flash_attention_bwd": 0, "wq_claim": 0}
+                               "flash_attention_bwd": 0, "wq_claim": 0,
+                               "cross_entropy": 0, "cross_entropy_bwd": 0}
     assert res["peak_mem_bytes"] is None and res["seconds"] > 0
     check = chip_smoke.phase_train_check(cfg, "cpu", batch=2, seq_len=64)
     assert check["loss"][0] == check["loss"][1]
@@ -223,10 +225,13 @@ def test_train_phases_on_cpu(chip_smoke, capsys):
 
 def test_train_launch_counts_of_the_full_config(chip_smoke):
     """qwen2-0.5b, 6 steps on 2 workers: 24 layers x 6 steps, the forward
-    twice (remat recomputes it in the backward), 3 claim ticks."""
+    twice (remat recomputes it in the backward), 3 claim ticks; 8 loss
+    chunks of 256 a step at S 2048, the cross-entropy forward twice (the
+    chunk's checkpoint)."""
     from repro_torch.configs import get_config
     assert chip_smoke.train_launches(get_config("qwen2-0.5b"), 6, 3) == {
-        "flash_attention": 288, "flash_attention_bwd": 144, "wq_claim": 3}
+        "flash_attention": 288, "flash_attention_bwd": 144, "wq_claim": 3,
+        "cross_entropy": 96, "cross_entropy_bwd": 48}
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,dh,window,dtype", [
@@ -309,16 +314,19 @@ def test_train_launch_counts_of_the_ssm_and_hybrid_runs(chip_smoke):
     (remat) and its backward once a layer and step; recurrentgemma-9b cut
     to 8 layers (2 groups + 2 tail: 6 rec and 2 attention layers), 6 steps
     of 4 microbatches: the RG-LRU scan and flash at width 256 likewise, per
-    microbatch; 3 claim ticks each."""
+    microbatch; 3 claim ticks each. The loss: mamba2's 8 chunks a step at S
+    2048; the hybrid's 16 a microbatch at its run's S 4096."""
     import dataclasses
     from repro_torch.configs import get_config
     assert chip_smoke.train_launches(get_config("mamba2-1.3b"), 6, 3) == {
-        "ssd_scan": 576, "ssd_scan_bwd": 288, "wq_claim": 3}
+        "ssd_scan": 576, "ssd_scan_bwd": 288, "wq_claim": 3,
+        "cross_entropy": 96, "cross_entropy_bwd": 48}
     hcut = dataclasses.replace(get_config("recurrentgemma-9b"),
                                num_layers=chip_smoke.HYBRID_TRAIN_LAYERS)
-    assert chip_smoke.train_launches(hcut, 6, 3) == {
+    assert chip_smoke.train_launches(hcut, 6, 3, 4096) == {
         "rglru_scan": 288, "rglru_scan_bwd": 144, "flash_attention": 96,
-        "flash_attention_bwd": 48, "wq_claim": 3}
+        "flash_attention_bwd": 48, "wq_claim": 3,
+        "cross_entropy": 768, "cross_entropy_bwd": 384}
 
 
 def test_ssd_bwd_bound_of_the_train_shape(chip_smoke):
@@ -428,7 +436,8 @@ def test_train_launch_counts_of_the_new_families(chip_smoke):
     """6 steps on 2 workers, the forward twice (remat): granite cut to
     MOE_TRAIN_LAYERS in its 4 microbatches; qwen2-vl's 28 layers;
     seamless's 24 encoder layers and 24 decoder layers' self- and
-    cross-attention."""
+    cross-attention. The loss: 8 chunks a microbatch at S 2048; seamless's
+    decoder labels, 2048 // 8 tokens, one chunk."""
     import dataclasses
     from repro_torch.configs import get_config
     n = chip_smoke.MOE_TRAIN_LAYERS
@@ -436,12 +445,15 @@ def test_train_launch_counts_of_the_new_families(chip_smoke):
                                num_layers=n)
     assert chip_smoke.train_launches(gcut, 6, 3) == {
         "flash_attention": n * 6 * 4 * 2, "flash_attention_bwd": n * 6 * 4,
-        "wq_claim": 3}
+        "wq_claim": 3, "cross_entropy": 8 * 6 * 4 * 2,
+        "cross_entropy_bwd": 8 * 6 * 4}
     assert chip_smoke.train_launches(get_config("qwen2-vl-2b"), 6, 3) == {
-        "flash_attention": 336, "flash_attention_bwd": 168, "wq_claim": 3}
+        "flash_attention": 336, "flash_attention_bwd": 168, "wq_claim": 3,
+        "cross_entropy": 96, "cross_entropy_bwd": 48}
     assert chip_smoke.train_launches(get_config("seamless-m4t-large-v2"),
                                      6, 3) == {
-        "flash_attention": 864, "flash_attention_bwd": 432, "wq_claim": 3}
+        "flash_attention": 864, "flash_attention_bwd": 432, "wq_claim": 3,
+        "cross_entropy": 12, "cross_entropy_bwd": 6}
 
 
 def test_flash_bounds_of_the_cross_shapes(chip_smoke):
@@ -584,6 +596,11 @@ def test_kernels_line_picks_each_runs_rows(chip_smoke):
                 k=1),
             row("flash_attention", arch=chip_smoke.SHARDED_TRAIN),
             row("flash_attention_bwd", arch=chip_smoke.SHARDED_TRAIN)]
+    runs = chip_smoke.xent_runs(cfg, scfg, hcfg, fams)
+    xent = {s: {k: row(k, shape=list(s)) for k in ("cross_entropy",
+                                                   "cross_entropy_bwd")}
+            for _, s in runs}
+    xrows = [r for by_kernel in xent.values() for r in by_kernel.values()]
     extra = [(row(k, **{x: kw[x] for x in ("arch", "causal") if x in kw}),
               arch, share)
              for k, arch, share, kw in chip_smoke.family_shapes(fams)]
@@ -601,8 +618,8 @@ def test_kernels_line_picks_each_runs_rows(chip_smoke):
     for c in fams:
         launches[c.name] = chip_smoke.SERVE_LAUNCHES[c.family](c, 8, 32)
         launches[f"{c.name} train"] = chip_smoke.train_launches(c, 6, 3)
-    line = chip_smoke.kernels_line(cfg, scfg, hcfg, fams, rows, extra,
-                                   launches)["kernels"]
+    line = chip_smoke.kernels_line(cfg, scfg, hcfg, fams, rows + xrows,
+                                   extra, launches)["kernels"]
     claim_ms = rows[2]["ms"]
     claims = [e for e in line if e["name"] == "wq_claim"]
     assert len(claims) == 9
@@ -612,15 +629,25 @@ def test_kernels_line_picks_each_runs_rows(chip_smoke):
                for e in claims if e["arch"])
     sharded = {e["name"]: e["ms"] for e in line
                if e["arch"] == chip_smoke.SHARDED_TRAIN}
+    sharded_xent = xent[dict(runs)[chip_smoke.SHARDED_TRAIN]]
     assert sharded == {"wq_claim": rows[-3]["ms"],
                        "flash_attention": rows[-2]["ms"],
-                       "flash_attention_bwd": rows[-1]["ms"]}
+                       "flash_attention_bwd": rows[-1]["ms"],
+                       **{k: r["ms"] for k, r in sharded_xent.items()}}
     by_run = {}
     for e in line:
         by_run[e["name"], e["arch"]] = by_run.get((e["name"], e["arch"]),
                                                   0) + e["launches"]
     assert by_run == {(k, a): n for a, run in launches.items()
                       for k, n in run.items()}
+    # each train run's cross-entropy entries carry its loss chunk's row:
+    # qwen2's and qwen2-vl's the same, 8 x 256 rows of 151,936
+    assert {(e["arch"], e["name"]): e["ms"] for e in line
+            if e["name"].startswith("cross_entropy")} == {
+        (a, k): xent[s][k]["ms"] for a, s in runs
+        for k in ("cross_entropy", "cross_entropy_bwd")}
+    assert xent[dict(runs)[train]] is xent[dict(runs)[f"{fams[1].name} train"]]
+    assert dict(runs)[train] == (8, 256, 151936)
     seamless = [e for e in line if e["arch"] == fams[2].name
                 and e["name"] == "decode_attention"]
     assert [(e["launches"], e["launches_share"]) for e in seamless] == \
@@ -731,3 +758,21 @@ def test_dryrun_specs_follow_the_train_runs(chip_smoke):
     assert repr(chip_smoke._spec_cfg(spec)) == repr(hcut)
     assert chip_smoke.PEAK_OPS[torch.bfloat16] == 989e12
     assert chip_smoke.HBM_BYTES_PER_S == 3.35e12
+
+
+def test_cross_entropy_bounds_of_the_loss_chunk(chip_smoke):
+    """qwen2-0.5b's loss chunk, 16 x 256 rows of 151,936 bf16 logits: the
+    forward reads them once (1.24 GB, 0.37 ms at 3.35 TB/s), the backward
+    reads and writes them once (0.74 ms); bytes bind both."""
+    rows, v = 16 * 256, 151936
+    fwd = chip_smoke._bound(*reversed(chip_smoke.xent_ops_bytes(
+        rows, v, torch.bfloat16)), torch.float32)
+    bwd = chip_smoke._bound(*reversed(chip_smoke.xent_ops_bytes(
+        rows, v, torch.bfloat16, backward=True)), torch.float32)
+    assert fwd["bytes"] == 2 * rows * v + 16 * rows
+    assert bwd["bytes"] == 4 * rows * v + 12 * rows
+    assert fwd["bound_by"] == bwd["bound_by"] == "bytes"
+    assert fwd["bound_ms"] == pytest.approx(0.3716, abs=1e-3)
+    assert bwd["bound_ms"] == pytest.approx(0.7431, abs=1e-3)
+    assert chip_smoke.SRC["cross_entropy"] == \
+        chip_smoke.SRC["cross_entropy_bwd"]

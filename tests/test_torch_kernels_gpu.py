@@ -469,11 +469,16 @@ def test_dispatch_launches_kernels_or_raises(dev):
     kops.rglru_scan(x, x)
     _sdpa(q[:, :1], q, q, causal=True, window=2, q_offset=3,
           kv_len=torch.tensor([4], dtype=torch.int32, device=dev))
+    labels = torch.zeros((4, 5), dtype=torch.int32, device=dev)
+    kops.cross_entropy(x, labels)
     assert launch_counts() == {"wq_claim": 1, "flash_attention": 1,
                                "flash_attention_bwd": 0,
                                "decode_attention": 3, "ssd_scan": 1,
                                "ssd_scan_bwd": 0, "rglru_scan": 1,
-                               "rglru_scan_bwd": 0}
+                               "rglru_scan_bwd": 0, "cross_entropy": 1,
+                               "cross_entropy_bwd": 0}
+    with pytest.raises(TypeError):
+        kops.cross_entropy(x.half(), labels)
     with pytest.raises(TypeError):
         kops.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError):

@@ -18,15 +18,17 @@ limits were set at these values.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
+import types
+import typing
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
-from benchlib import checks, traffic, weights
-from benchlib.flops import train_step_flops
+from benchlib import cells, checks, program_trace, traffic, weights
 from benchlib.trace import Recorder, read_profile
 from plainref import steering as ref_steering
 from plainref.common import B1, Numerics, full_precision, train_steps
@@ -38,12 +40,29 @@ TRACE_SECONDS = 8.0   # the traced part of a --trace 1 window
 
 
 def model_config(m: Dict[str, Any]):
-    """The port's ``ModelConfig`` of a configuration file's ``model``."""
-    from repro_torch.configs.base import ModelConfig, SSMConfig
-    fields = dict(m)
-    if "ssm" in fields:
-        fields["ssm"] = SSMConfig(**fields["ssm"])
-    return ModelConfig(**fields)
+    """The port's ``ModelConfig`` of a configuration file's ``model``, its
+    nested configurations (``moe``, ``ssm``, ``rglru``, any the port has)
+    built as their dataclasses."""
+    from repro_torch.configs.base import ModelConfig
+    return _as_type(ModelConfig, m)
+
+
+def _as_type(hint, value):
+    """JSON ``value`` as the type ``hint`` names: a dict as the dataclass,
+    field by field; a list as a tuple where the type is one; an Optional's
+    value as its type."""
+    if typing.get_origin(hint) in (typing.Union, types.UnionType):
+        hint = next(a for a in typing.get_args(hint) if a is not type(None))
+    if dataclasses.is_dataclass(hint) and isinstance(value, dict):
+        hints = typing.get_type_hints(hint)
+        return hint(**{k: _as_type(hints.get(k, Any), v)
+                       for k, v in value.items()})
+    if typing.get_origin(hint) is tuple and isinstance(value, list):
+        args = typing.get_args(hint)
+        if len(args) == 2 and args[1] is Ellipsis:
+            args = (args[0],) * len(value)
+        return tuple(_as_type(a, v) for a, v in zip(args, value))
+    return value
 
 
 def _leaf_norms(tensors: Dict[str, torch.Tensor], scale: float = 1.0
@@ -72,6 +91,8 @@ class SweepRun:
         self.kept_sweeps: List[tuple] = []
         self.readings: Dict[str, Any] = {}
         self._patched: List[tuple] = []
+        self._records: list = []           # the port's spans, traced part
+        self.entries = cells.op_entries() if trace else {}
         self.tokens = self.mix["rows"] * self.mix["seq_len"]
 
     # ----------------------------------------------------------- set-up
@@ -127,7 +148,7 @@ class SweepRun:
     def _instrument(self, X) -> None:
         """Wrap the calls into each layer: the step (the checks' readings),
         the queue's claim and finish, the steering sweep, the data feed,
-        and in a traced run the port's attention and scan entries."""
+        and in a traced run the op entries the kernel files declare."""
         ex, rec = self.ex, self.rec
         inner_step = ex.step_fn
 
@@ -162,12 +183,11 @@ class SweepRun:
 
         ex.steering.run_all = sweep
         self._patch(X, "batch_for", rec.wrap("batch", X.batch_for))
-        if self.trace:
+        if self.entries:
             from repro_torch.kernels import ops as kops
-            self._patch(kops, "flash_attention", rec.wrap_op(
-                "flash", kops.flash_attention, _attn_shape))
-            self._patch(kops, "ssd_scan", rec.wrap_op(
-                "ssd", kops.ssd_scan, _ssd_shape))
+            for label, e in self.entries.items():
+                self._patch(kops, e.op, rec.wrap_op(
+                    label, getattr(kops, e.op), e.shape))
 
     def _patch(self, module, name: str, fn) -> None:
         """Put ``fn`` in place of ``module.name`` until the program is
@@ -207,8 +227,9 @@ class SweepRun:
 
     # ----------------------------------------------------------- window
     def window(self, seconds: float) -> Dict[str, Any]:
-        """Tick for ``seconds``; in a traced run, the profiler and the
-        spans cover its first ``TRACE_SECONDS``."""
+        """Tick for ``seconds``; in a traced run, the profiler, the
+        benchmark's spans and the port's own (its tracer on) cover its
+        first ``TRACE_SECONDS``."""
         ex, rec = self.ex, self.rec
         n_before = len(self.finished)
         prof, t_trace = None, None
@@ -218,6 +239,7 @@ class SweepRun:
             if torch.device(self.device).type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
             prof = profile(activities=acts)
+            program_trace.switch(True)
             prof.__enter__()
             rec.active = True
         t0 = time.perf_counter()
@@ -237,24 +259,26 @@ class SweepRun:
                if done else None}
         if prof is not None:
             traced = [f for f in self.finished[n_before:] if f[2] <= t_trace]
-            obs = read_profile(prof, t_trace - t0,
-                               {"flash": "FlashAttentionFn",
-                                "ssd": "SSDScanFn"})
+            obs = read_profile(prof, t_trace - t0, self.entries)
             obs.update(spans=dict(rec.spans), span_cpu=dict(rec.cpu),
                        shapes=dict(rec.shapes),
                        tasks=len(traced),
                        task_window_s=(traced[-1][2] - t0) if traced else None,
-                       step_flops=train_step_flops(self.m, self.mix["rows"],
-                                                   self.mix["seq_len"]))
+                       step_flops=cells.train_step_flops(
+                           self.m, self.mix["rows"], self.mix["seq_len"]),
+                       program=program_trace.read_program(prof,
+                                                          self._records))
             out["obs"] = obs
         return out
 
     def _stop_trace(self, prof) -> float:
         """Close the traced part of the window: the device drained, the
-        spans off, the profiler stopped. Returns its end on the host."""
+        spans and the port's tracer off, the profiler stopped. Returns its
+        end on the host."""
         self._sync()
         t = time.perf_counter()
         self.rec.active = False
+        self._records = program_trace.switch(False)
         prof.__exit__(None, None, None)
         return t
 
@@ -396,6 +420,7 @@ class SweepRun:
     def info(self, win) -> Dict[str, Any]:
         return {"tasks_in_window": win["tasks"], "sweeps": self.sweeps,
                 **span_walls(win.get("obs")),
+                **program_trace.info(win.get("obs")),
                 "steer_checked": len(self.kept_sweeps),
                 "check_s": getattr(self, "check_s", None),
                 **getattr(self, "train_info", {}),
@@ -443,15 +468,3 @@ def _differ(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Elementwise a != b, a NaN equal to a NaN."""
     return ~((a == b) | (np.isnan(a) & np.isnan(b)))
 
-
-def _attn_shape(q, k, v, **kw):
-    return {"q": tuple(q.shape), "kv": tuple(k.shape),
-            "dtype": str(q.dtype).replace("torch.", ""),
-            "causal": kw.get("causal", True), "window": kw.get("window", 0)}
-
-
-def _ssd_shape(x, bmat, cmat, dt, da, **kw):
-    return {"x": tuple(x.shape), "bc": tuple(bmat.shape),
-            "dtype": str(x.dtype).replace("torch.", ""),
-            "chunk": kw.get("chunk", 256),
-            "heads_per_bc": kw.get("heads_per_bc", 1)}

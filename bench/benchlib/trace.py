@@ -5,10 +5,12 @@ Spans are the benchmark's own wrappers around the calls into each layer
 (``bench::<span>``); each records its wall time and the CPU time of its
 own thread (``time.thread_time``), which leaves out the time it waited
 for the interpreter lock while another thread held it. An op entry is a wrapper around one of the port's
-op functions (``bench::op::<name>``); the device time of an op is that of
+op functions (``bench::op::<label>``), declared by the kernel files
+(:func:`benchlib.cells.op_entries`); the device time of an op is that of
 every kernel launched inside its entry, and, for its backward, inside the
 autograd node of its Function (``<Function>Backward``), less the entries
-nested in them. So a later kernel under the same entry reads the same.
+nested in them; where the entry names its kernels, only of those. So a
+later kernel under the same entry reads the same.
 """
 from __future__ import annotations
 
@@ -83,23 +85,25 @@ def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float,
     return [(a, b) for a, b in out]
 
 
-def _own_device_us(e, nested: Callable) -> float:
-    """Device us of every kernel under CPU event ``e``, less that of the
-    events under it that ``nested`` names."""
-    total = sum(k.duration for k in e.kernels)
+def _own_device_us(e, nested: Callable, kernels=None) -> float:
+    """Device us of every kernel under CPU event ``e`` (of those whose name
+    holds one of ``kernels``, where given), less that of the events under
+    it that ``nested`` names."""
+    total = sum(k.duration for k in e.kernels
+                if kernels is None or any(f in k.name for f in kernels))
     for ch in e.cpu_children:
         if not nested(ch):
-            total += _own_device_us(ch, nested)
+            total += _own_device_us(ch, nested, kernels)
     return total
 
 
-def read_profile(prof, window_s: float, backward_nodes: Dict[str, str]
+def read_profile(prof, window_s: float, entries: Dict[str, object]
                  ) -> Dict[str, object]:
     """What the benchmark reads from a stopped profile of ``window_s``
     seconds: the device's busy seconds, the longest idle gaps by the host
     span open in them, the device operations that took most time, and each
-    op's device seconds (its entry, and its backward node named in
-    ``backward_nodes``: op -> Function name)."""
+    op's device seconds a call (its entry, and its backward node as
+    ``<label>.bwd``), of ``entries`` (label -> :class:`cells.OpEntry`)."""
     events = prof.events()
     dev = _device_events(events)
     busy = _union([(e.time_range.start, e.time_range.end) for e in dev])
@@ -112,7 +116,8 @@ def read_profile(prof, window_s: float, backward_nodes: Dict[str, str]
 
     cpu = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CPU]
-    bwd_name = {f"{fn}Backward": op for op, fn in backward_nodes.items()}
+    bwd_name = {f"{x.node}Backward": op for op, x in entries.items()
+                if x.node}
 
     def node_op(e) -> Optional[str]:
         for key, op in bwd_name.items():
@@ -126,11 +131,14 @@ def read_profile(prof, window_s: float, backward_nodes: Dict[str, str]
     op_s: Dict[str, List[float]] = defaultdict(list)
     for e in cpu:
         if e.name.startswith(OP):
-            op_s[e.name[len(OP):]].append(_own_device_us(e, is_entry) / 1e6)
+            op = key = e.name[len(OP):]
         else:
             op = node_op(e)
-            if op is not None:
-                op_s[op + ".bwd"].append(_own_device_us(e, is_entry) / 1e6)
+            key = f"{op}.bwd"
+        if op is None:
+            continue
+        kern = entries[op].kernels if op in entries else None
+        op_s[key].append(_own_device_us(e, is_entry, kern) / 1e6)
 
     # idle gaps, each put to the innermost span open at its middle on the
     # driving thread (every span but the analyst thread's steering sweep),

@@ -4,7 +4,12 @@ and the LSE read and dq, dk, dv written once. fp32 operands are counted
 at the TF32 peak (``benchlib.peaks``)."""
 from __future__ import annotations
 
+from benchlib import cells
 from benchlib.roofline import attention_pairs
+
+OP, LABEL, NODE = "flash_attention", "flash", "FlashAttentionFn"
+# the node carries no shapes: its calls are counted at the forward calls'
+shape = cells.kernel_file("flash_fwd").shape
 
 
 def count(q, kv, dtype, causal=True, window=0):

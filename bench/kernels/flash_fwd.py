@@ -6,6 +6,17 @@ from __future__ import annotations
 
 from benchlib.roofline import attention_pairs
 
+OP = "flash_attention"          # its entry in repro_torch.kernels.ops
+LABEL = "flash"
+NODE = "FlashAttentionFn"       # its backward node: flash_bwd.py
+
+
+def shape(q, k, v, **kw):
+    """``count``'s keywords of a call of the entry."""
+    return {"q": tuple(q.shape), "kv": tuple(k.shape),
+            "dtype": str(q.dtype).replace("torch.", ""),
+            "causal": kw.get("causal", True), "window": kw.get("window", 0)}
+
 
 def count(q, kv, dtype, causal=True, window=0, lse=True):
     """(operations, bytes, operand dtype) of one call; q [B,S,Hq,Dh], kv

@@ -7,6 +7,12 @@ gradients written once, fp32, counted at the TF32 peak
 (``benchlib.peaks``)."""
 from __future__ import annotations
 
+from benchlib import cells
+
+OP, LABEL, NODE = "ssd_scan", "ssd", "SSDScanFn"
+# the node carries no shapes: its calls are counted at the forward calls'
+shape = cells.kernel_file("ssd_fwd").shape
+
 
 def count(x, bc, dtype="float32", chunk=256, heads_per_bc=1):
     """(operations, bytes, operand dtype) of one call; x [BH,S,P], B/C

@@ -5,6 +5,18 @@ the final state written once. fp32 operands are counted at the TF32 peak
 (``benchlib.peaks``)."""
 from __future__ import annotations
 
+OP = "ssd_scan"                 # its entry in repro_torch.kernels.ops
+LABEL = "ssd"
+NODE = "SSDScanFn"              # its backward node: ssd_bwd.py
+
+
+def shape(x, bmat, cmat, dt, da, **kw):
+    """``count``'s keywords of a call of the entry."""
+    return {"x": tuple(x.shape), "bc": tuple(bmat.shape),
+            "dtype": str(x.dtype).replace("torch.", ""),
+            "chunk": kw.get("chunk", 256),
+            "heads_per_bc": kw.get("heads_per_bc", 1)}
+
 
 def count(x, bc, dtype, chunk=256, heads_per_bc=1):
     """(operations, bytes, operand dtype) of one call; x [BH,S,P], B/C

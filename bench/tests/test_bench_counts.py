@@ -1,12 +1,14 @@
-"""The frozen FLOP arithmetic and the kernels' operation and byte counts:
-against closed forms, against the port's ``analytic_model_flops``, and
-against the kernel times measured before (PERF.md's table of kernels),
-under which no share may pass 100%."""
+"""The frozen FLOP arithmetic (``bench/flops/<family>.py``, found by the
+configuration's family) and the kernels' operation and byte counts:
+against closed forms, against the port's ``analytic_model_flops``, against
+the numbers the cells read before the arithmetic moved into its family's
+file, and against the kernel times measured before (PERF.md's table of
+kernels), under which no share may pass 100%."""
 from __future__ import annotations
 
 import pytest
 
-from benchlib import cells, flops, peaks
+from benchlib import cells, peaks
 
 SHAPES = {"qwen2-0.5b.sweep-2k": ("qwen2-0.5b", 16, 2048),
           "mamba2-1.3b.sweep-2k": ("mamba2-1.3b", 8, 2048),
@@ -24,13 +26,36 @@ def test_train_flops_equal_the_ports(cell):
         (rows, seq, arch)
     port = model_config(c.model)      # the port's config of the file's sizes
     want = analytic_model_flops(port, ShapeConfig("t", seq, rows, "train"))
-    assert flops.train_step_flops(c.model, rows, seq) == pytest.approx(
+    assert cells.train_step_flops(c.model, rows, seq) == pytest.approx(
         want, rel=1e-12)
-    assert flops.param_count(c.model) == port.param_count
+    assert cells.flops(c.model["family"]).param_count(c.model) == \
+        port.param_count
+
+
+# Each cell's step_flops as the traced runs read it before the families'
+# arithmetic moved into bench/flops/: to the bit.
+STEP_FLOPS = {"qwen2-0.5b.sweep-2k": 105783836540928.0,
+              "mamba2-1.3b.sweep-2k": 142116541956096.0,
+              "qwen2-0.5b.sweep-8k": 131759798747136.0}
+
+
+@pytest.mark.parametrize("cell", sorted(SHAPES))
+def test_train_flops_are_the_cells_numbers_before(cell):
+    _, rows, seq = SHAPES[cell]
+    assert cells.train_step_flops(cells.cell(cell).model, rows, seq) == \
+        STEP_FLOPS[cell]
+
+
+def test_a_family_with_no_flops_file_names_the_file():
+    m = dict(cells.cell("qwen2-0.5b.sweep-2k").model, family="moe")
+    with pytest.raises(FileNotFoundError) as e:
+        cells.train_step_flops(m, 16, 2048)
+    assert str(cells.BENCH / "flops" / "moe.py") in str(e.value)
 
 
 def test_dense_flops_closed_form():
     m = cells.cell("qwen2-0.5b.sweep-2k").model
+    flops = cells.flops("dense")
     n = 151936 * 896 + 24 * (896 * 14 * 64 + 2 * 896 * 2 * 64
                              + 14 * 64 * 896 + 3 * 896 * 4864 + 2 * 896)
     assert flops.param_count(m) == n
@@ -71,6 +96,17 @@ def test_ssd_counts_closed_form():
     assert ops == 2.0 * (3 * rows * pairs * n + bh * (2 * pairs * p
                                                       + 5 * s * p * n))
     assert nbytes == 4 * (3 * bh * s * p + 4 * rows * s * n + 4 * bh * s)
+
+
+def test_xent_counts_closed_form():
+    fwd, bwd = cells.kernel_count("xent_fwd"), cells.kernel_count(
+        "xent_bwd")
+    r, v = 4096, 151936
+    assert fwd(r, v, "bfloat16") == (4.0 * r * v, 2 * r * v + 16 * r,
+                                     "bfloat16")
+    assert bwd(r, v, "bfloat16") == (4.0 * r * v, 4 * r * v + 12 * r,
+                                     "bfloat16")
+    assert fwd(r, v, "float32")[1:] == (4 * r * v + 16 * r, "float32")
 
 
 # (kernel file, its shape, device ms measured on the H100): the rows of
@@ -154,6 +190,16 @@ MEASURED = [
                      heads_per_bc=64), 0.560),
     ("ssd_bwd", dict(x=(64, 2048, 64), bc=(1, 2048, 128),
                      heads_per_bc=64), 0.713),
+    ("xent_fwd", dict(rows=16 * 256, v=151936, dtype="bfloat16"), 0.3980),
+    ("xent_fwd", dict(rows=8 * 256, v=50288, dtype="bfloat16"), 0.0719),
+    ("xent_fwd", dict(rows=8 * 256, v=151936, dtype="bfloat16"), 0.206),
+    ("xent_fwd", dict(rows=2 * 256, v=49155, dtype="bfloat16"), 0.020),
+    ("xent_fwd", dict(rows=8 * 256, v=256206, dtype="bfloat16"), 0.340),
+    ("xent_bwd", dict(rows=16 * 256, v=151936, dtype="bfloat16"), 0.8747),
+    ("xent_bwd", dict(rows=8 * 256, v=50288, dtype="bfloat16"), 0.1538),
+    ("xent_bwd", dict(rows=8 * 256, v=151936, dtype="bfloat16"), 0.442),
+    ("xent_bwd", dict(rows=2 * 256, v=49155, dtype="bfloat16"), 0.040),
+    ("xent_bwd", dict(rows=8 * 256, v=256206, dtype="bfloat16"), 0.866),
 ]
 
 

@@ -1,9 +1,11 @@
 """The port's spans read from a profile (``benchlib/program_trace.py``):
 on synthetic events, the idle partition adds up to ``device_idle_pct.train``
-exactly and a kernel launched on another thread inside ``step.backward`` is
-the backward's; on a CPU-profiled tiny cell, the spans are found and no
-device quantity is read; on a port without a tracer, nothing is read; the
-benchmark's own run is left as it was."""
+exactly, a kernel launched on another thread inside ``step.backward`` is
+the backward's, and every span name gets its wall, device and idle seconds;
+on a CPU-profiled tiny cell, every traced window holds the port's spans in
+``obs["program"]``, a reader of a span the harness never names reads it,
+and no device quantity is read; on a port without a tracer, nothing is
+read; an untraced run leaves the tracer off."""
 from __future__ import annotations
 
 import sys
@@ -13,7 +15,6 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-import program_split
 import run
 from benchlib import cells, program_trace, sweep
 from benchlib.trace import read_profile
@@ -100,26 +101,38 @@ def _synthetic():
     return events, recs
 
 
+def _read(name, obs):
+    return cells.metric_reader(name)(obs)
+
+
 def test_idle_partition_adds_up_and_backward_is_found_by_launch():
     events, recs = _synthetic()
     window_s = 600e-6
     obs = read_profile(_Prof(events), window_s, {})
     obs["program"] = program_trace.read_program(_Prof(events), recs)
     p = obs["program"]
-    assert p["tasks"] == 2
-    # kernels by the phase holding their launching op's start; the backward's
+    assert p["tasks"] == 2 and p["records"] == recs
+    # kernels by the span holding their launching op's start; the backward's
     # op runs on the autograd thread and is no child of the step.backward
     # range; the mirrored range is no kernel; the profiling layer's event
     # that shares the op's id adds nothing
-    assert p["phase_device_s"] == pytest.approx(
-        {"step.forward": 40e-6, "step.backward": 50e-6,
-         "step.optimizer": 20e-6})
+    sp = p["spans"]
+    assert {k: sp[k]["device_s"] for k in program_trace.PHASES} == \
+        pytest.approx({"step.forward": 40e-6, "step.backward": 50e-6,
+                       "step.optimizer": 20e-6})
+    # every span name alike: a step holds its phases' kernels; a sweep is
+    # only in the records, so it launched nothing the profile saw
+    assert sp["tick.step"]["device_s"] == pytest.approx(110e-6)
+    assert sp["tick.claim"]["device_s"] == 0.0
+    assert sp["steer.sweep"]["device_s"] is None
+    assert sp["steer.sweep"]["wall_s"] == pytest.approx([15e-6])
     # each step [t+20, t+100]: busy 20 + 25 + 10 + 2 (the copy's start)
-    assert p["step_idle_s"] == pytest.approx(2 * (80 - 57) * 1e-6)
-    got = program_trace.metrics(obs)
-    assert set(got) == set(NEW)
-    got["device_idle_pct.train"] = cells.metric_reader(
-        "device_idle_pct.train")(obs)
+    assert sp["tick.step"]["idle_s"] == pytest.approx(2 * (80 - 57) * 1e-6)
+    # the forward [t+21, t+50]: busy 25-45; the sweep [1245, 1260]: busy
+    # 1256-1260
+    assert sp["step.forward"]["idle_s"] == pytest.approx(2 * 9e-6)
+    assert sp["steer.sweep"]["idle_s"] == pytest.approx(11e-6)
+    got = {m: _read(m, obs) for m in NEW + ("device_idle_pct.train",)}
     assert got["step_idle_pct.train"] + got["between_steps_idle_pct.train"] \
         == pytest.approx(got["device_idle_pct.train"], abs=1e-9)
     assert got["step_idle_pct.train"] == pytest.approx(
@@ -167,10 +180,12 @@ def test_without_device_events_or_spans_nothing_is_read():
     events, recs = _synthetic()
     host = [e for e in events if e.device_type == CPU]
     p = program_trace.read_program(_Prof(host), recs)
-    assert p == {"tasks": 2, "claim_wall_s": pytest.approx([1e-5, 1e-5]),
-                 "steer_wall_s": pytest.approx([1.5e-5])}
+    assert p["tasks"] == 2 and "task_device_s" not in p
+    assert p["spans"]["tick.claim"]["wall_s"] == pytest.approx([1e-5, 1e-5])
+    assert all(v["device_s"] is None and v["idle_s"] is None
+               for v in p["spans"].values())
     obs = {"busy_s": 0.0, "window_s": 1.0, "program": p}
-    got = program_trace.metrics(obs)
+    got = {m: _read(m, obs) for m in NEW}
     assert got == dict.fromkeys(NEW[:-1], None) | {
         "claim_wall_ms.train": pytest.approx(0.01)}
     # a profile without the port's spans (a port with no tracer)
@@ -178,8 +193,9 @@ def test_without_device_events_or_spans_nothing_is_read():
         program_trace.PREFIX)]
     obs = read_profile(_Prof(bare), 1e-3, {})
     obs["program"] = program_trace.read_program(_Prof(bare), [])
-    assert obs["program"] == {} and program_trace.info(obs) == {}
-    assert all(v is None for v in program_trace.metrics(obs).values())
+    assert obs["program"] == {"records": [], "spans": {}, "tasks": 0}
+    assert program_trace.info(obs) == {}
+    assert all(_read(m, obs) is None for m in NEW)
 
 
 def test_a_port_without_a_tracer_switches_nothing(monkeypatch):
@@ -201,41 +217,100 @@ def tiny(tmp_path_factory):
 
 def test_cpu_profiled_tiny_cell_reads_the_ports_spans(tiny):
     tmp, spec = tiny
-    r = program_trace.ProgramRun(cells.cell("tiny", spec, tmp), 3000000043,
-                                 "cpu", True)
+    r = sweep.SweepRun(cells.cell("tiny", spec, tmp), 3000000043, "cpu",
+                       True)
     r.setup()
     win = r.window(1.0)
     r.close_program()
     obs = win["obs"]
     p = obs["program"]
     assert p["tasks"] == obs["tasks"] >= 1
-    assert len(p["claim_wall_s"]) >= p["tasks"] / r.mix["workers"]
-    assert all(0 < s < 1.0 for s in p["claim_wall_s"])
-    assert "step_idle_s" not in p and "phase_device_s" not in p
+    claims = p["spans"]["tick.claim"]["wall_s"]
+    assert len(claims) >= p["tasks"] / r.mix["workers"]
+    assert all(0 < s < 1.0 for s in claims)
+    assert "task_device_s" not in p
+    assert all(v["device_s"] is None for v in p["spans"].values())
+    # the raw records, as the tracer returned them
+    assert {x.name for x in p["records"]} >= {"tick.claim", "tick.step",
+                                             "step.forward"}
     from repro_torch import trace
     assert not trace.enabled()
 
 
+def test_the_kernel_files_entries_are_wrapped_each_once(tiny):
+    """A traced run wraps every entry the kernel files declare, once each
+    (two files share each entry), reads their calls in the window, and
+    puts the port's own back when the program closes."""
+    from repro_torch.kernels import ops as kops
+    tmp, spec = tiny
+    declared = {e.op for e in cells.op_entries().values()}
+    assert declared == {"flash_attention", "ssd_scan", "cross_entropy"}
+    before = {op: getattr(kops, op) for op in declared}
+    r = sweep.SweepRun(cells.cell("tiny", spec, tmp), 3000000067, "cpu",
+                       True)
+    r.setup()
+    wrapped = sorted(name for mod, name, _ in r._patched if mod is kops)
+    assert wrapped == sorted(declared)
+    assert all(getattr(kops, op) is not before[op] for op in declared)
+    win = r.window(1.0)
+    r.close_program()
+    assert all(getattr(kops, op) is before[op] for op in declared)
+    # on the CPU the dense cell's attention takes the plain path; its loss
+    # goes through the entry: chunks of 4 x 16 tokens, each called in the
+    # forward and again in the checkpoint's recompute
+    shapes = win["obs"]["shapes"]
+    assert set(shapes) == {"xent"}
+    assert shapes["xent"][0] == {"rows": 4 * 16, "v": 96,
+                                 "dtype": "bfloat16"}
+    assert len(shapes["xent"]) == 2 * 2 * win["obs"]["program"]["tasks"]
+
+
+def test_a_reader_of_a_span_the_harness_never_names_reads_it(tiny,
+                                                             tmp_path):
+    """A later span needs only a reader file: ``tick.commit`` is named
+    nowhere in the harness."""
+    tmp, spec = tiny
+    path = tmp_path / "commit_wall_ms.train.py"
+    path.write_text(
+        "from benchlib.program_trace import span\n\n\n"
+        "def read(obs):\n"
+        "    t = span(obs, 'tick.commit').get('wall_s')\n"
+        "    return 1e3 * sum(t) / len(t) if t else None\n")
+    r = sweep.SweepRun(cells.cell("tiny", spec, tmp), 3000000059, "cpu",
+                       True)
+    r.setup()
+    win = r.window(1.0)
+    r.close_program()
+    got = cells._load_file(path, "metric").read(win["obs"])
+    assert 0 < got < 1e3
+    walls = [x.wall_s for x in win["obs"]["program"]["records"]
+             if x.name == "tick.commit"]
+    assert got == pytest.approx(1e3 * sum(walls) / len(walls))
+
+
 def test_split_reports_the_claims_wall_and_no_device_quantity(tiny):
     tmp, spec = tiny
-    out = program_split.split("tiny", 3000000047, 1.0, device="cpu",
-                              t_start=time.time(), spec=spec, files=tmp)
+    out = run.run("tiny", 3000000047, 1.0, True, device="cpu",
+                  t_start=time.time(), spec=spec, files=tmp)
     assert out["correct"], out["checks"]
-    info = out["info"]
-    assert info["claim_wall_ms.train"] >= \
-        0.99 * out["metrics"]["claim_ms.train"]["value"]
-    assert all(info[m] is None for m in NEW[:-1])
-    assert "idle_s_by_program_span" not in info
-    assert sweep.Run is sweep.SweepRun
+    got = out["metrics"]
+    assert got["claim_wall_ms.train"]["value"] >= \
+        0.99 * got["claim_ms.train"]["value"]
+    assert not set(got) & set(NEW[:-1])
+    assert "idle_s_by_program_span" not in out["info"]
 
 
 def test_the_benchmarks_traced_run_leaves_the_tracer_off(tiny):
+    """The tracer is on only in a traced window: an untraced run leaves it
+    off and records nothing, a traced one turns it off at the trace's
+    end."""
     from repro_torch import trace
     tmp, spec = tiny
     trace.take()
-    out = run.run("tiny", 3000000053, 1.0, True, device="cpu",
+    out = run.run("tiny", 3000000053, 1.0, False, device="cpu",
                   t_start=time.time(), spec=spec, files=tmp)
     assert out["correct"], out["checks"]
-    assert not set(out["metrics"]) & set(NEW)
-    assert not set(out["info"]) & set(NEW)
+    assert not trace.enabled() and trace.take() == []
+    run.run("tiny", 3000000061, 1.0, True, device="cpu",
+            t_start=time.time(), spec=spec, files=tmp)
     assert not trace.enabled() and trace.take() == []

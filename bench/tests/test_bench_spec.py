@@ -1,7 +1,9 @@
-"""BENCHMARK.json against the benchmark's contract, and every cell's files
-found by name."""
+"""BENCHMARK.json against the benchmark's contract, every cell's files
+found by name, the kernel files' op entries, and the port's configuration
+of any family built from a configuration file's ``model`` dict."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 
@@ -112,10 +114,81 @@ def test_cell_files_resolve_by_name(name):
         assert callable(cells.metric_reader(m["name"]))
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd", "ssd_fwd",
-                                    "ssd_bwd"])
+KERNELS = ["flash_fwd", "flash_bwd", "ssd_fwd", "ssd_bwd", "xent_fwd",
+           "xent_bwd"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_kernel_files_resolve_by_name(kernel):
     assert callable(cells.kernel_count(kernel))
+    assert callable(cells.kernel_file(kernel).shape)
+
+
+def test_kernel_files_declare_the_entries_read_before():
+    """Flash and SSD through the entries, nodes and shapes the traced run
+    wrapped by name before the kernel files declared them; the loss's
+    kernels through theirs, its time its own kernels'."""
+    got = {label: (e.op, e.node, e.kernels)
+           for label, e in cells.op_entries().items()}
+    assert got == {"flash": ("flash_attention", "FlashAttentionFn", None),
+                   "ssd": ("ssd_scan", "SSDScanFn", None),
+                   "xent": ("cross_entropy", "CrossEntropyFn",
+                            ("xent_fwd", "xent_bwd"))}
+    import torch
+    e = cells.op_entries()
+    q, kv = torch.zeros(2, 8, 4, 16), torch.zeros(2, 8, 2, 16)
+    assert e["flash"].shape(q, kv, kv, causal=True) == {
+        "q": (2, 8, 4, 16), "kv": (2, 8, 2, 16), "dtype": "float32",
+        "causal": True, "window": 0}
+    x, bc = torch.zeros(8, 32, 4), torch.zeros(2, 32, 6)
+    assert e["ssd"].shape(x, bc, bc, x, x, chunk=16, heads_per_bc=4) == {
+        "x": (8, 32, 4), "bc": (2, 32, 6), "dtype": "float32", "chunk": 16,
+        "heads_per_bc": 4}
+    lg = torch.zeros(3, 5, 7, dtype=torch.bfloat16)
+    assert e["xent"].shape(lg, torch.zeros(3, 5)) == {
+        "rows": 15, "v": 7, "dtype": "bfloat16"}
+
+
+def test_kernel_files_of_one_entry_must_agree(tmp_path):
+    for name, node in (("a_fwd", "AFn"), ("a_bwd", "BFn")):
+        (tmp_path / f"{name}.py").write_text(
+            f"OP, LABEL, NODE = 'a_op', 'a', {node!r}\n"
+            "def shape(x):\n    return {}\n")
+    with pytest.raises(ValueError, match="a_op"):
+        cells.op_entries(tmp_path)
+
+
+# Every configuration of the port's registry, as a configuration file's
+# ``model`` dict holds it (JSON: tuples as lists, nested configs as dicts).
+def _arch_ids():
+    from repro_torch.configs import ARCH_IDS
+    return ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", _arch_ids())
+def test_every_registry_config_round_trips(arch):
+    from benchlib.sweep import model_config
+    from repro_torch.configs import get_config
+    port = get_config(arch)
+    m = json.loads(json.dumps(dataclasses.asdict(port)))
+    assert model_config(m) == port
+
+
+def test_a_moe_config_file_builds_the_registry_config():
+    """What a MoE configuration needs of the harness: its dict builds the
+    port's config, experts and all; a hybrid's pattern comes back a
+    tuple."""
+    from benchlib.sweep import model_config
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    granite = get_config("granite-moe-3b-a800m")
+    got = model_config(json.loads(json.dumps(dataclasses.asdict(granite))))
+    assert got == granite and isinstance(got.moe, MoEConfig)
+    assert (got.moe.num_experts, got.moe.top_k, got.moe.dispatch) == \
+        (40, 8, "sort")
+    rg = get_config("recurrentgemma-9b")
+    got = model_config(json.loads(json.dumps(dataclasses.asdict(rg))))
+    assert isinstance(got.rglru.pattern, tuple) and got == rg
 
 
 # Where the port's registry departs from the published checkpoint, the

@@ -30,8 +30,10 @@ class MoEConfig:
     top_k: int = 0
     expert_ff: int = 0              # per-expert hidden dim
     aux_loss_weight: float = 0.01
-    # dispatch mode: "dense" (one-hot matmul, small E) or
-    # "sort" (ragged sort-based, the >64-expert scale path)
+    # dispatch mode: "dense" (one-hot matmul, small E), "sort" (ragged
+    # sort-based with a capacity, the >64-expert scale path) or "dropless"
+    # (every assignment computed: grouped GEMMs over the experts' sorted
+    # rows, exactly ``num_experts`` experts stored)
     dispatch: str = "dense"
 
 
@@ -98,6 +100,15 @@ class ModelConfig:
     pipeline_stages: int = 1
     # source annotation
     source: str = ""
+    # --- muP multipliers (Granite): the embedding output times the first;
+    # the softmax scale (0: dh ** -0.5); each block's branch added as
+    # x + residual_multiplier * f(x); the logits divided by the last. Left
+    # out of the repr, so that a config that keeps the defaults reads as
+    # the reference's ---
+    embedding_multiplier: float = field(default=1.0, repr=False)
+    attention_multiplier: float = field(default=0.0, repr=False)
+    residual_multiplier: float = field(default=1.0, repr=False)
+    logits_scaling: float = field(default=1.0, repr=False)
 
     @property
     def resolved_head_dim(self) -> int:

@@ -54,12 +54,13 @@ def arrival_counters(device: torch.device, stream: int, rows: int
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_len: torch.Tensor, window: int = 0
-                         ) -> torch.Tensor:
+                         kv_len: torch.Tensor, window: int = 0,
+                         scale=None) -> torch.Tensor:
     """q: [B,1,Hq,dh]; k/v: [B,Smax,Hkv,dh]; kv_len: int32 [1] on the same
     card (read by the kernel, so no host sync). Contiguous, one dtype
     (fp32 or bf16), dh <= 256. ``window > 0`` also masks the positions below
-    ``kv_len - window``."""
+    ``kv_len - window``. The softmax scale is ``scale``, None for
+    ``dh ** -0.5``."""
     library.refuse_grad("decode_attention", q, k, v,
                         item="decode is serve-only; " + library.TRAINING_ITEM)
     library.require_cuda("decode_attention", q, k, v, kv_len)
@@ -77,7 +78,7 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or window < 0:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)}")
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     lib = library.library()
     nsplit = num_splits(sm_count(q.device.index), b, hkv, smax)
     scratch = torch.empty(

@@ -12,15 +12,16 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
-def decode_attention(q, k, v, *, kv_len, window: int = 0):
+def decode_attention(q, k, v, *, kv_len, window: int = 0, scale=None):
     """q: [B,1,Hq,DH]; k/v: [B,Smax,Hkv,DH]; kv_len: int32 tensor of one
     element. ``window > 0`` masks the positions below ``kv_len - window``
     (the reference's Pallas dispatcher drops the window; its oracle,
-    ``sdpa_ref``, applies it, and so does the port)."""
+    ``sdpa_ref``, applies it, and so does the port). ``scale`` is the
+    softmax scale (None: ``DH ** -0.5``)."""
     if q.device.type == "cuda":
         return decode_attention_fwd(q.contiguous(), k.contiguous(),
                                     v.contiguous(), kv_len.reshape(1),
-                                    window)
+                                    window, scale=scale)
     if q.device.type not in ("cpu", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return decode_attention_ref(q, k, v, kv_len, window)
+    return decode_attention_ref(q, k, v, kv_len, window, scale=scale)

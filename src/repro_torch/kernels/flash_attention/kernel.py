@@ -28,14 +28,14 @@ def _check(name, q, k, v, max_dh):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False, scale=None):
     """q: [B,S,Hq,dh]; k/v: [B,Skv,Hkv,dh]; contiguous CUDA tensors of one
     dtype (fp32 or bf16), dh <= 256. The kernel runs at the next width of
-    64/128/256 and reads the missing head dims as zeros; the scale is the
-    true ``dh ** -0.5``. With ``return_lse`` it returns ``(o, lse)``, lse
-    [B,Hq,S] fp32 the natural-log
-    log-sum-exp of each row's scaled logits (+inf for a row that sees no
-    key), which the backward needs.
+    64/128/256 and reads the missing head dims as zeros; the softmax scale
+    is ``scale``, None for the true ``dh ** -0.5``. With ``return_lse`` it
+    returns ``(o, lse)``, lse [B,Hq,S] fp32 the natural-log log-sum-exp of
+    each row's scaled logits (+inf for a row that sees no key), which the
+    backward needs.
 
     Forward only: with grad enabled and an input that requires grad it
     raises; :class:`~repro_torch.kernels.flash_attention.ops.FlashAttentionFn`
@@ -54,13 +54,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        v.data_ptr(), out.data_ptr(),
                        lse.data_ptr() if lse is not None else None, b, sq,
                        skv, hq, hkv, dh, int(bool(causal)), int(window),
-                       float(dh ** -0.5), library.DTYPE_CODES[q.dtype],
+                       _softmax_scale(dh, scale), library.DTYPE_CODES[q.dtype],
                        library.stream_of(q))
     flash_attention_fwd.launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def _softmax_scale(dh: int, scale) -> float:
+    return float(dh ** -0.5 if scale is None else scale)
 
 
 # the backward's dK/dV kernel has one block per key tile of BWD_KEY_TILE
@@ -96,11 +100,12 @@ def bwd_heads_per_split(b: int, skv: int, hq: int, hkv: int, dh: int = 128,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = True, window: int = 0):
+                        *, causal: bool = True, window: int = 0, scale=None):
     """(dq, dk, dv) in q's dtype of the attention whose forward gave ``o``
-    and ``lse`` (:func:`flash_attention_fwd` with ``return_lse``), for the
-    output gradient ``do``; all contiguous CUDA tensors, q/k/v/o/do of one
-    dtype (fp32 or bf16), lse fp32 [B,Hq,S], dh <= 256. Kernels on the
+    and ``lse`` (:func:`flash_attention_fwd` with ``return_lse``, at the
+    same ``scale``), for the output gradient ``do``; all contiguous CUDA
+    tensors, q/k/v/o/do of one dtype (fp32 or bf16), lse fp32 [B,Hq,S],
+    dh <= 256. Kernels on the
     caller's stream: D = rowsum(do * o), then dk/dv (with the group's query
     heads in :func:`bwd_heads_per_split` runs, whose fp32 partials a
     second kernel adds in order when there is more than one), then dq; no
@@ -134,7 +139,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        part.data_ptr() if part is not None else None,
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv,
                        hq, hkv, dh, int(bool(causal)), int(window), hps,
-                       float(dh ** -0.5), library.DTYPE_CODES[q.dtype],
+                       _softmax_scale(dh, scale), library.DTYPE_CODES[q.dtype],
                        library.stream_of(q))
     flash_attention_bwd.launches += 1
     return dq, dk, dv

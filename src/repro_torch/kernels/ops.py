@@ -14,10 +14,17 @@ gathers around a custom call it cannot partition (a KV cache sharded on its
 sequence, for example). Each rank then launches the same kernel on its own
 rows and heads, through the dispatch above: no sharded path falls back to
 the plain version on the card.
+
+The grouped product of the dropless MoE (:func:`grouped_mm`) has no
+hand-written kernel: on the card it is PyTorch's grouped GEMM
+(``torch._grouped_mm``, CUTLASS on Hopper), as the reference computes its
+expert products in XLA and not in a Pallas kernel.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.kernels.cross_entropy.ops import cross_entropy  # noqa: F401
 from repro_torch.kernels.decode_attention.ops import \
@@ -128,21 +135,25 @@ def attention_on_mesh(fn: Callable, q, k, v, *extra):
                    len(extra), qs, q.device_mesh, partial_grads=mqa)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: [B,S,Hq,DH]; k/v: [B,Skv,Hkv,DH]."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None):
+    """q: [B,S,Hq,DH]; k/v: [B,Skv,Hkv,DH]; ``scale`` the softmax scale
+    (None: ``DH ** -0.5``)."""
     if is_dtensor(q):
         return attention_on_mesh(lambda a, b, c: _flash_attention(
-            a, b, c, causal=causal, window=window), q, k, v)
-    return _flash_attention(q, k, v, causal=causal, window=window)
+            a, b, c, causal=causal, window=window, scale=scale), q, k, v)
+    return _flash_attention(q, k, v, causal=causal, window=window,
+                            scale=scale)
 
 
-def decode_attention(q, k, v, *, kv_len, window: int = 0):
+def decode_attention(q, k, v, *, kv_len, window: int = 0, scale=None):
     """q: [B,1,Hq,DH]; k/v: [B,Smax,Hkv,DH]; kv_len: int32 tensor of one
-    element."""
+    element; ``scale`` the softmax scale (None: ``DH ** -0.5``)."""
     if is_dtensor(q):
         return attention_on_mesh(lambda a, b, c, n: _decode_attention(
-            a, b, c, kv_len=n, window=window), q, k, v, kv_len)
-    return _decode_attention(q, k, v, kv_len=kv_len, window=window)
+            a, b, c, kv_len=n, window=window, scale=scale), q, k, v, kv_len)
+    return _decode_attention(q, k, v, kv_len=kv_len, window=window,
+                             scale=scale)
 
 
 def _ssd_rows(mesh, groups: int) -> Tuple[str, ...]:
@@ -175,6 +186,23 @@ def ssd_scan(x, bmat, cmat, dt, da, *, chunk: int = 256,
             x.device_mesh)
     return _ssd_scan(x, bmat, cmat, dt, da, chunk=chunk,
                      heads_per_bc=heads_per_bc)
+
+
+def grouped_mm(x, w, offs):
+    """x: [M,K]; w: [G,K,N]; offs: [G] int32, the cumulative ends of the G
+    groups of x's rows (the last is M) -> [M,N], group g's rows times
+    ``w[g]``; an empty group gives no row. On a CUDA tensor
+    ``torch._grouped_mm`` (bf16; offs stays on the card, no host sync) and
+    its own backward node; on a CPU tensor a plain loop of one product a
+    group, which plain autograd differentiates."""
+    if x.device.type == "cuda":
+        return torch._grouped_mm(x, w, offs=offs)
+    if x.device.type != "cpu":
+        raise ValueError(f"grouped_mm: unsupported device {x.device}")
+    ends = offs.tolist()
+    starts = [0] + ends[:-1]
+    return torch.cat([x[a:b] @ w[g] for g, (a, b) in
+                      enumerate(zip(starts, ends))])
 
 
 def rglru_scan(a, u):

@@ -63,19 +63,20 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              causal: bool, window: int = 0, q_offset=0,
-             kv_len=None) -> torch.Tensor:
+             kv_len=None, scale=None) -> torch.Tensor:
     """Reference scaled-dot-product attention with GQA.
 
     q: [B,Sq,Hq,Dh], k/v: [B,Skv,Hkv,Dh]. ``q_offset`` is the absolute
     position of q[0] (for decode). ``kv_len`` masks positions >= kv_len
     (cache tail). ``window > 0`` restricts attention to the last ``window``
-    positions. Both may be ints or scalar tensors.
+    positions. Both may be ints or scalar tensors. ``scale`` is the softmax
+    scale (None: ``dh ** -0.5``).
     """
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, dh)
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     qpos = torch.arange(sq, device=q.device)[:, None] + q_offset   # [Sq,1]
     kpos = torch.arange(skv, device=q.device)[None, :]             # [1,Skv]
@@ -97,27 +98,30 @@ def _needs_grad(*ts) -> bool:
 
 
 def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None,
-          attn_impl: str = "ref", q_chunk: int = 256, packed: bool = False):
+          attn_impl: str = "ref", q_chunk: int = 256, packed: bool = False,
+          scale=None):
     if is_dtensor(q):
         # on a mesh: this function on each rank's batch rows and heads
         def local(a, b, c, off, n):
             return _sdpa(a, b, c, causal=causal, window=window,
                          q_offset=off, kv_len=n, attn_impl=attn_impl,
-                         q_chunk=q_chunk, packed=packed)
+                         q_chunk=q_chunk, packed=packed, scale=scale)
         return kops.attention_on_mesh(local, q, k, v, q_offset, kv_len)
     if q.device.type == "cuda":
         if q.shape[1] == 1 and kv_len is not None:                  # decode
             return kops.decode_attention(q, k, v, kv_len=kv_len,
-                                         window=window)
+                                         window=window, scale=scale)
         if q.shape[1] == 1 and not _needs_grad(q, k, v):
             # one query against every key (the reference sends it to its
             # decode kernel with kv_len=None): the keys' count as the
             # kernel's kv_len, filled on the card (no host sync)
             n = torch.full((1,), k.shape[1], dtype=torch.int32,
                            device=q.device)
-            return kops.decode_attention(q, k, v, kv_len=n, window=window)
+            return kops.decode_attention(q, k, v, kv_len=n, window=window,
+                                         scale=scale)
         if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
-            return kops.flash_attention(q, k, v, causal=causal, window=window)
+            return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                        scale=scale)
         raise NotImplementedError(
             f"no CUDA attention kernel for q {tuple(q.shape)} with "
             f"causal={causal}, window={window}, q_offset={q_offset!r}, "
@@ -126,15 +130,18 @@ def _sdpa(q, k, v, *, causal, window=0, q_offset=0, kv_len=None,
             and isinstance(q_offset, int) and q_offset == 0:
         from repro_torch.models.chunked_attn import chunked_sdpa
         return chunked_sdpa(q, k, v, causal=causal, window=window,
-                            q_chunk=q_chunk, packed=packed)
+                            q_chunk=q_chunk, packed=packed, scale=scale)
     return sdpa_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                    kv_len=kv_len)
+                    kv_len=kv_len, scale=scale)
 
 
 def _chunking(cfg: ModelConfig) -> dict:
-    """The config's attention schedule, as :func:`_sdpa` takes it."""
+    """The config's attention schedule and softmax scale (None: the head
+    width's ``dh ** -0.5``; Granite's ``attention_multiplier``), as
+    :func:`_sdpa` takes them."""
     return {"attn_impl": cfg.attn_impl, "q_chunk": cfg.q_chunk,
-            "packed": cfg.packed_causal}
+            "packed": cfg.packed_causal,
+            "scale": cfg.attention_multiplier or None}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -196,7 +203,8 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         cache_write(ck, slot, k)
         cache_write(cv, slot, v)
         kv_len = torch.clamp(cache_idx + 1, max=window)
-        out = kops.decode_attention(q, ck, cv, kv_len=kv_len)
+        out = kops.decode_attention(q, ck, cv, kv_len=kv_len,
+                                    scale=_chunking(cfg)["scale"])
         new_kv = (ck, cv)
     else:
         ck, cv = cache_kv

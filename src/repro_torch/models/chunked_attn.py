@@ -56,14 +56,15 @@ def _stitch(outs: List[torch.Tensor], b, sq, hq, dh, dtype) -> torch.Tensor:
 
 def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool, window: int = 0, q_chunk: int = 1024,
-                 packed: bool = False) -> torch.Tensor:
-    """q: [B,Sq,Hq,Dh]; k/v: [B,Skv,Hkv,Dh]; Sq == Skv (train/prefill)."""
+                 packed: bool = False, scale=None) -> torch.Tensor:
+    """q: [B,Sq,Hq,Dh]; k/v: [B,Skv,Hkv,Dh]; Sq == Skv (train/prefill);
+    ``scale`` the softmax scale (None: ``Dh ** -0.5``)."""
     if packed and causal and not window:
-        return _packed_causal(q, k, v, q_chunk=q_chunk)
+        return _packed_causal(q, k, v, q_chunk=q_chunk, scale=scale)
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     q_chunk = min(q_chunk, sq)
     nq = sq // q_chunk
     qg = _chunked(q, nq, q_chunk, hkv, g)
@@ -87,7 +88,7 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _packed_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   q_chunk: int) -> torch.Tensor:
+                   q_chunk: int, scale=None) -> torch.Tensor:
     """Triangle-packed causal schedule.
 
     Pair q-chunk i (needs kv[0:(i+1)c]) with q-chunk n-1-i (needs
@@ -99,11 +100,12 @@ def _packed_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = dh ** -0.5
     q_chunk = min(q_chunk, sq)
     n = sq // q_chunk
     if n % 2 != 0:
-        return chunked_sdpa(q, k, v, causal=True, q_chunk=q_chunk)
+        return chunked_sdpa(q, k, v, causal=True, q_chunk=q_chunk,
+                            scale=scale)
+    scale = dh ** -0.5 if scale is None else scale
     qg = _chunked(q, n, q_chunk, hkv, g)
     half = skv // 2
     kpos_lo = torch.arange(half, device=q.device)

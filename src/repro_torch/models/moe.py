@@ -1,6 +1,6 @@
-"""Mixture-of-Experts FFN: top-k router and three dispatch paths.
+"""Mixture-of-Experts FFN: top-k router and four dispatch paths.
 
-PyTorch counterpart of ``repro/models/moe.py``:
+PyTorch counterpart of ``repro/models/moe.py``, with one path of its own:
 - "dense": the all-experts oracle (exact, FLOP-wasteful x E/top_k);
 - "sort": the capacity-bounded dispatch, the reference's single-device
   production algorithm (a stable sort by expert gives each token its rank
@@ -12,13 +12,30 @@ PyTorch counterpart of ``repro/models/moe.py``:
   parallelism with *local* dispatch (the reference's ``shard_map``):
   routing runs on the whole batch's DTensors, each rank scatters its own
   tokens to its own slab of experts, and the partial outputs are summed
-  over "model".
+  over "model";
+- "dropless" (the port's own; single device): every assignment computed,
+  as the published models route: each assignment's place in the stable
+  sort of the [T,k] expert ids (one scan, :func:`_sorted_positions`)
+  groups the assignments by expert, the group ends are a cumsum of the
+  counts the aux loss makes (on the card, no host sync), the rows are
+  gathered in that order, the expert products run as two grouped GEMMs
+  over the groups (``kernels.ops.grouped_mm``), and each assignment's row
+  is gathered back by the inverse permutation and summed over the k slots
+  with its weight. No capacity, no dropped assignment and no padding
+  expert: its layer stores exactly ``num_experts`` experts, gate and up as
+  one ``gate_up`` [E, d, 2f] leaf (gate first), ``down`` [E, f, d]. Every
+  gather and its backward touches unique rows, and the k slots of a token
+  are summed in order (:class:`_Dispatch`): the same bits on every run.
+  With :mod:`repro_torch.trace` on it opens the spans ``moe.route``,
+  ``moe.dispatch``, ``moe.experts`` and ``moe.combine`` and records the
+  counter ``moe.expert_load``.
 
-Expert weights are stored padded to a multiple of ``EP_SHARDS`` experts, as
-the reference stores them (``[E_pad, d, f]``), so that params and
-checkpoints cross over unchanged; the padding experts get no routing mass
-(the router emits only the true E logits). The expert products run as
-``torch.bmm`` / ``torch.einsum``: the reference computes them in XLA, not
+Expert weights of the other paths are stored padded to a multiple of
+``EP_SHARDS`` experts, as the reference stores them (``[E_pad, d, f]``),
+so that params and checkpoints cross over unchanged; the padding experts
+get no routing mass (the router emits only the true E logits). Their
+expert products run as ``torch.bmm`` / ``torch.einsum``, the dropless
+path's as PyTorch's grouped GEMM: the reference computes them in XLA, not
 in a Pallas kernel.
 """
 from __future__ import annotations
@@ -30,7 +47,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.sharding import (current_rules, flat_rows, from_full,
                                   is_dtensor, placements_for, shard)
@@ -45,13 +64,19 @@ def _epad(e: int) -> int:
 
 class MoE(nn.Module):
     """The reference's ``moe_init`` leaves, in its layout: ``router`` [d, E]
-    (fp32), ``up`` / ``gate`` [E_pad, d, f], ``down`` [E_pad, f, d]."""
+    (fp32), ``up`` / ``gate`` [E_pad, d, f], ``down`` [E_pad, f, d]. The
+    dropless dispatch (GLU experts) stores ``router``, ``gate_up``
+    [E, d, 2f] and ``down`` [E, f, d]."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype):
         super().__init__()
         m = cfg.moe
         d, f, e = cfg.d_model, m.expert_ff, m.num_experts
-        ep = _epad(e)
+        dropless = m.dispatch == "dropless"
+        if dropless and not cfg.glu:
+            raise NotImplementedError("the dropless dispatch takes GLU "
+                                      "experts")
+        ep = e if dropless else _epad(e)
         scale = d ** -0.5
 
         def draw(shape, dt, s):
@@ -61,9 +86,13 @@ class MoE(nn.Module):
             return nn.Parameter(t)
 
         self.router = draw((d, e), torch.float32, scale)
-        self.up = draw((ep, d, f), dtype, scale)
+        if dropless:
+            self.gate_up = draw((e, d, 2 * f), dtype, scale)
+        else:
+            self.up = draw((ep, d, f), dtype, scale)
         self.down = draw((ep, f, d), dtype, f ** -0.5)
-        self.gate = draw((ep, d, f), dtype, scale) if cfg.glu else None
+        if not dropless:
+            self.gate = draw((ep, d, f), dtype, scale) if cfg.glu else None
         # None, or a callable [T,k] expert ids -> [T,k] expert ids that
         # replaces :func:`route`'s top-k choice: a card-vs-CPU check pins
         # one run's routing to another's with it (top-k is discontinuous
@@ -79,6 +108,12 @@ def route(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     replaces the experts, weighed by these probabilities). The logits are
     fp32 whatever the params' dtype (the reference's f32 @ bf16
     promotes)."""
+    return _route(p, x2d, cfg)[:3]
+
+
+def _route(p: MoE, x2d: torch.Tensor, cfg: ModelConfig):
+    """:func:`route`'s three, and the [E] fp32 counts of the assignments by
+    expert that its aux loss is made of."""
     m = cfg.moe
     logits = x2d.float() @ p.router.float()                     # [T,E]
     probs = torch.softmax(logits, dim=-1)
@@ -92,9 +127,10 @@ def route(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     # summed over the k slots, counted here by a scatter (exact: sums of
     # ones), with no [T,k,E] one-hot and no host sync
     me = torch.mean(probs, dim=0)                               # mean prob
-    ce = _expert_counts(idx, m.num_experts) / idx.shape[0]      # routed frac
+    counts = _expert_counts(idx, m.num_experts)
+    ce = counts / idx.shape[0]                                  # routed frac
     aux = m.num_experts * torch.sum(me * ce)
-    return w.to(x2d.dtype), idx, aux
+    return w.to(x2d.dtype), idx, aux, counts
 
 
 def _counts(idx: torch.Tensor, e: int) -> torch.Tensor:
@@ -323,10 +359,99 @@ def moe_ffn_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig
     return out2d.reshape(b, s, d), aux
 
 
+class _Dispatch(torch.autograd.Function):
+    """x2d [T,D] -> its rows in the sorted order ``order`` of the [T*k]
+    token-major assignments, row i being token ``order[i] // k``. The
+    backward puts the rows' gradients back in assignment order (a gather
+    by the inverse permutation, unique rows) and sums each token's k slots
+    in order: no scatter-add, so the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, x2d, order, inv, k: int):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return x2d.index_select(0, torch.div(order, k,
+                                             rounding_mode="floor"))
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        gx = g.index_select(0, inv)
+        return gx.reshape(-1, ctx.k, g.shape[-1]).sum(1), None, None, None
+
+
+class _Permute(torch.autograd.Function):
+    """Rows ``ys[inv]``, ``inv`` a permutation whose inverse is ``order``;
+    the backward gathers ``g[order]``: no scatter."""
+
+    @staticmethod
+    def forward(ctx, ys, inv, order):
+        ctx.save_for_backward(order)
+        return ys.index_select(0, inv)
+
+    @staticmethod
+    def backward(ctx, g):
+        order, = ctx.saved_tensors
+        return g.index_select(0, order), None, None
+
+
+def _sorted_positions(flat: torch.Tensor, e: int) -> torch.Tensor:
+    """Each of the [N] assignments' place in their stable sort by expert
+    id: the assignments before it in expert-major, then index order. That
+    is one inclusive cumsum of their [E, N] one-hots laid out expert-major
+    and read at each one's own entry, less 1: a zero fill, a scatter, one
+    device-wide scan and a gather (a sort's kernels copy its keys first)."""
+    n = flat.numel()
+    at = flat * n + torch.arange(n, device=flat.device)
+    hot = torch.zeros(e * n, dtype=torch.int32, device=flat.device)
+    hot.scatter_(0, at, 1)
+    return torch.cumsum(hot, 0, dtype=torch.int32).index_select(
+        0, at).long() - 1
+
+
+def _expert_products(p: MoE, xs: torch.Tensor, offs: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The experts' GLU FFN on their groups of sorted rows: [T*k, D] ->
+    same, as two grouped products (gate and up in one)."""
+    h = kops.grouped_mm(xs, p.gate_up, offs)
+    f = h.shape[-1] // 2
+    h = L.act_fn(cfg.act)(h[:, :f]) * h[:, f:]
+    return kops.grouped_mm(h, p.down, offs)
+
+
+def moe_ffn_dropless(p: MoE, x: torch.Tensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropless dispatch (see the module docstring). x: [B,S,D], a plain
+    tensor on one device."""
+    if is_dtensor(x):
+        raise NotImplementedError("the dropless MoE dispatch runs on one "
+                                  "device; a mesh takes moe_ffn_ep")
+    b, s, d = x.shape
+    k = cfg.moe.top_k
+    x2d = x.reshape(b * s, d)
+    with trace.span("moe.route"):
+        w, idx, aux, counts = _route(p, x2d, cfg)
+    trace.count("moe.expert_load", counts)
+    with trace.span("moe.dispatch"):
+        inv = _sorted_positions(idx.reshape(-1), cfg.moe.num_experts)
+        order = torch.empty_like(inv).scatter_(
+            0, inv, torch.arange(inv.numel(), device=x.device))
+        offs = torch.cumsum(counts, 0).to(torch.int32)           # [E] ends
+        xs = _Dispatch.apply(x2d, order, inv, k)
+    with trace.span("moe.experts"):
+        ys = _expert_products(p, xs, offs, cfg)
+    with trace.span("moe.combine"):
+        y = _Permute.apply(ys, inv, order).reshape(b * s, k, d)
+        out2d = torch.sum(y * w[..., None], dim=1)
+    return out2d.reshape(b, s, d), aux
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.moe.dispatch == "dense":
         return moe_ffn_dense(p, x, cfg)
+    if cfg.moe.dispatch == "dropless":
+        return moe_ffn_dropless(p, x, cfg)
     rules = current_rules()
     if rules is not None and "model" in rules.mesh.mesh_dim_names \
             and rules.mesh["model"].size() > 1:

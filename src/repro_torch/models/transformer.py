@@ -27,6 +27,11 @@ two agree exactly.
 The MoE family's attention blocks hold an expert FFN (``models/moe.py``)
 whose load-balancing aux loss each block returns; the stacks sum it over
 the layers and :func:`train_loss` adds ``aux_loss_weight`` times the sum.
+Granite's multipliers (``ModelConfig``'s ``embedding_multiplier``,
+``residual_multiplier``, ``logits_scaling``; the softmax scale
+``attention_multiplier`` in ``models/attention.py``) scale the embeddings,
+each block's branch and the head's input; at their defaults nothing is
+launched for them.
 The VLM family reads precomputed patch embeddings (``batch["embeds"]``,
 rounded to ``cfg.dtype`` as the reference casts them, then widened to the
 params' dtype where they are wider, as JAX promotes) and rotates by M-RoPE
@@ -150,6 +155,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> DecoderLM:
 # ---------------------------------------------------------------------------
 # blocks (prefill: cache=None; decode: cache per layer)
 # ---------------------------------------------------------------------------
+def _res(cfg: ModelConfig, x, out):
+    """A block's branch added to the residual stream: ``x + out``, or
+    ``x + residual_multiplier * out`` in one kernel."""
+    r = cfg.residual_multiplier
+    return x + out if r == 1.0 else torch.add(x, out, alpha=r)
+
+
 def _attn_block(p: AttnBlock, x, cfg: ModelConfig, *, positions, window=0,
                 cache=None, idx=None, mrope=None):
     """(x, new K/V, the MoE aux loss: the number 0 without experts, so that
@@ -158,25 +170,25 @@ def _attn_block(p: AttnBlock, x, cfg: ModelConfig, *, positions, window=0,
     out, new_kv = A.attention(p.attn, h, cfg, positions=positions,
                               causal=True, window=window, cache_kv=cache,
                               cache_idx=idx, mrope_positions=mrope)
-    x = x + out
+    x = _res(cfg, x, out)
     aux = 0.0
     if hasattr(p, "moe"):
         out, aux = M.moe_ffn(p.moe, p.ln2(x), cfg)
-        x = x + out
+        x = _res(cfg, x, out)
     elif hasattr(p, "mlp"):
-        x = x + p.mlp(p.ln2(x))
+        x = _res(cfg, x, p.mlp(p.ln2(x)))
     return x, new_kv, aux
 
 
 def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None):
     out, new_state = S.ssd_mixer(p.mixer, p.ln1(x), cfg, state=cache)
-    return x + out, new_state
+    return _res(cfg, x, out), new_state
 
 
 def _rec_block(p: RecBlock, x, cfg: ModelConfig, *, cache=None):
     out, new_state = R.rglru_block(p.mixer, p.ln1(x), cfg, state=cache)
-    x = x + out
-    return x + p.mlp(p.ln2(x)), new_state
+    x = _res(cfg, x, out)
+    return _res(cfg, x, p.mlp(p.ln2(x))), new_state
 
 
 def _hybrid_layers(cfg: ModelConfig, params: DecoderLM, caches):
@@ -224,6 +236,24 @@ def _run_stack(cfg: ModelConfig, params: DecoderLM, x, *, positions,
 
 def _head_table(cfg: ModelConfig, params: DecoderLM) -> nn.Embedding:
     return params.embed if cfg.tie_embeddings else params.head
+
+
+def _head_input(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm's output as the head product takes it: divided by
+    ``logits_scaling`` first (the same logits over it, with no pass over
+    [.., V]), unchanged at the default 1."""
+    s = cfg.logits_scaling
+    return x if s == 1.0 else x * (1.0 / s)
+
+
+def _logits(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor):
+    """The last position's logits of a prefill or decode step."""
+    return L.unembed(_head_table(cfg, params), _head_input(cfg, x[:, -1:]))
+
+
+def _scale_embeds(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
 
 
 # ---------------------------------------------------------------------------
@@ -371,8 +401,8 @@ def _embed_inputs(cfg: ModelConfig, params: DecoderLM,
     else:
         # a replicated view of the table (the reference's gather is from
         # one; a no-op without a rule set)
-        x = torch.nn.functional.embedding(
-            batch["tokens"], shard(params.embed.weight, None, None))
+        x = _scale_embeds(cfg, torch.nn.functional.embedding(
+            batch["tokens"], shard(params.embed.weight, None, None)))
     return shard(x, "batch", "seq", None)
 
 
@@ -392,7 +422,7 @@ def train_loss(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any]
     positions = torch.arange(s, device=x.device)[None, :]
     x, aux = _run_stack_train(cfg, params, x, positions=positions,
                               mrope=_mrope(cfg, batch))
-    x = params.final_norm(x)
+    x = _head_input(cfg, params.final_norm(x))
     loss = chunked_xent(cfg, x, _head_table(cfg, params).weight,
                         batch["labels"])
     if cfg.moe is not None:
@@ -479,7 +509,7 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch: Dict[str, Any],
         A.cache_write(cv[i], positions[0], v)
     cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     x = params.final_norm(x)
-    logits = L.unembed(_head_table(cfg, params), x[:, -1:])
+    logits = _logits(cfg, params, x)
     return logits, cache
 
 
@@ -494,7 +524,7 @@ def _ssm_prefill(cfg: ModelConfig, params: DecoderLM, x
     cache = {"layers": states,
              "idx": torch.tensor(s, dtype=torch.int32, device=x.device)}
     x = params.final_norm(x)
-    return L.unembed(_head_table(cfg, params), x[:, -1:]), cache
+    return _logits(cfg, params, x), cache
 
 
 def _hybrid_prefill(cfg: ModelConfig, params: DecoderLM, x, max_len: int
@@ -518,7 +548,7 @@ def _hybrid_prefill(cfg: ModelConfig, params: DecoderLM, x, max_len: int
             A.cache_write(c["v"][i], slots, v[:, pos])
     cache["idx"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     x = params.final_norm(x)
-    return L.unembed(_head_table(cfg, params), x[:, -1:]), cache
+    return _logits(cfg, params, x), cache
 
 
 def decode_step(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
@@ -531,7 +561,7 @@ def decode_step(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
     if cfg.embed_stub and tokens.dim() == 3:
         x = tokens.to(_dtype(cfg))
     else:
-        x = params.embed(tokens)
+        x = _scale_embeds(cfg, params.embed(tokens))
     idx = cache["idx"]
     positions = idx[None, None] * torch.ones((x.shape[0], 1),
                                              dtype=torch.int32,
@@ -541,5 +571,5 @@ def decode_step(cfg: ModelConfig, params: DecoderLM, tokens: torch.Tensor,
     x, new_caches = _run_stack(cfg, params, x, positions=positions,
                                caches=cache["layers"], idx=idx, mrope=mrope)
     x = params.final_norm(x)
-    logits = L.unembed(_head_table(cfg, params), x[:, -1:])
+    logits = _logits(cfg, params, x)
     return logits, {"layers": new_caches, "idx": idx + 1}

@@ -151,11 +151,13 @@ Phases, each printing JSON lines:
      4,096 or 2,500 frames at prefill, one over 4,096 at decode), and the
      train paths' forward with LSE and backward, seamless's at its
      encoder's 8 x 2,048, its decoder's 8 x 256 and its cross-attention's
-     256 x 2,048 not causal), then one ``{"kernels": [...]}`` line: one
-     entry per kernel, model and shape it runs there, with that run's
-     launches at the shape (its share of the kernel's count, where the run
-     gives it several shapes) and the device times of the kernel and of
-     its library call.
+     256 x 2,048 not causal; the sm90 flash forward, which every bf16
+     width-64 call takes, at the benchmark cells' three shapes beside the
+     kernel it replaces there and SDPA), then one ``{"kernels": [...]}``
+     line: one entry per kernel, model and shape it runs there, with that
+     run's launches at the shape (its share of the kernel's count, where
+     the run gives it several shapes) and the device times of the kernel
+     and of its library call.
 Then a ``{"phase": "done"}`` line with the run's seconds (the build
 included), the card's name and power limit again, the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises:
@@ -858,9 +860,10 @@ def phase_train(cfg, device, *, steps=6, workers=2, seq_len=2048, batch=8,
     ``workers`` partitions through the claim kernel (device claims on), each
     step's loss, grad norm and seconds written back to the store, steering
     sweeps on snapshots every 2 steps. The launch counts are this run's
-    alone; peak device memory is read over building the executor (master
-    params, AdamW moments) and over the run, and held under ``max_peak``
-    when given."""
+    alone, and with bf16 compute at head width 64 every flash forward must
+    have taken the sm90 kernel; peak device memory is read over building
+    the executor (master params, AdamW moments) and over the run, and held
+    under ``max_peak`` when given."""
     on_card = torch.device(device).type == "cuda"
     t_phase = time.perf_counter()
     if on_card:
@@ -894,10 +897,18 @@ def phase_train(cfg, device, *, steps=6, workers=2, seq_len=2048, batch=8,
     check(np.array_equal(np.sort(out0), np.sort(losses)),
           f"store out0 {out0} != history losses {losses}")
     check(ex.last_steering is not None, "no steering sweep ran")
+    sm90 = flash_attention_fwd.sm90_launches
     if on_card:
         for k, n in counts.items():
             check(n == want.get(k, 0),
                   f"{k} launches {n} != {want.get(k, 0)} (train)")
+        # every bf16 forward at head width 64 takes the sm90 kernel
+        # (kernels/flash_attention/kernel.py::takes_sm90)
+        sm90_cfg = cfg.dtype == "bfloat16" and cfg.resolved_head_dim == 64
+        want_sm90 = counts["flash_attention"] if sm90_cfg else 0
+        check(sm90 == want_sm90, f"{cfg.name}: {sm90} of "
+              f"{counts['flash_attention']} flash forwards on the sm90 "
+              f"route, {want_sm90} expected")
     peak = torch.cuda.max_memory_allocated(device) if on_card else None
     if max_peak is not None and on_card:
         for what, v in (("init", init_peak), ("run", peak)):
@@ -922,6 +933,7 @@ def phase_train(cfg, device, *, steps=6, workers=2, seq_len=2048, batch=8,
            "wall_s": wall, "init_peak_mem_bytes": init_peak,
            "peak_mem_bytes": peak,
            "launches": {k: counts[k] for k in want},
+           "flash_sm90_launches": sm90,
            "steering_q4": ex.last_steering["q4"],
            "seconds": time.perf_counter() - t_phase}
     emit(res)
@@ -2353,6 +2365,76 @@ def _flash_case(dev, s, hq, hkv, dh, dtype, rng, window=0, arch=None, b=1,
     return row
 
 
+# the benchmark's attention calls, the train path's flash forward with its
+# LSE (bf16, width 64, causal): (cell, batch, S, Hq, Hkv); a task launches
+# it twice a layer (forward and remat's recompute)
+FLASH_SM90_SHAPES = (("qwen2-0.5b.sweep-2k", 16, 2048, 14, 2),
+                     ("qwen2-0.5b.sweep-8k", 4, 8192, 14, 2),
+                     ("granite-moe-3b-a800m.sweep-2k", 16, 2048, 24, 8))
+
+
+def flash_sm90_rows(dev, rng) -> list:
+    """The sm90 flash forward (``csrc/flash_attention_sm90.cu``) at the
+    benchmark cells' shapes, with its LSE: held against the plain version
+    and the LSE reference on the first batch row (the others are the same
+    function of other data; the plain version of the whole 8k batch needs
+    ~45 GB), every call on the sm90 route, a repeat bit-identical; its time
+    at the whole shape beside the kernel of ``csrc/flash_attention.cu`` at
+    the same shape (``before_device_ms``, through its launcher) and SDPA's
+    (the yardstick), and the bound."""
+    rows = []
+    for cell, b, s, hq, hkv in FLASH_SM90_SHAPES:
+        q = torch.as_tensor(rng.standard_normal((b, s, hq, 64)),
+                            dtype=torch.float32, device=dev).bfloat16()
+        k, v = (torch.as_tensor(rng.standard_normal((b, s, hkv, 64)),
+                                dtype=torch.float32, device=dev).bfloat16()
+                for _ in range(2))
+        before = flash_attention_fwd.sm90_launches
+        fa = functools.partial(flash_attention_fwd, q, k, v, return_lse=True)
+        got, lse = fa()
+        check(flash_attention_fwd.sm90_launches == before + 1,
+              f"flash {cell}: not on the sm90 route")
+        one = [t[:1] for t in (q, k, v)]
+        err = _attn_error(got[:1], flash_attention_ref(*one),
+                          f"flash sm90 {cell}")
+        err["lse_max_abs_err"] = float(
+            (lse[:1] - flash_attention_lse_ref(*one[:2])).abs().max())
+        err["lse_tol"] = LSE_TOL
+        check(err["lse_max_abs_err"] <= LSE_TOL,
+              f"flash sm90 lse {cell}: {err['lse_max_abs_err']}")
+        again = fa()
+        check(torch.equal(again[0], got) and torch.equal(again[1], lse),
+              f"flash sm90 {cell}: a repeat differs")
+        del got, lse, again
+        old = torch.empty_like(q)
+        old_lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+
+        def before_call():
+            library.launch("flash_attention_launch", q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), old.data_ptr(),
+                           old_lse.data_ptr(), b, s, s, hq, hkv, 64, 1, 0,
+                           64 ** -0.5, library.BFLOAT16, library.stream_of(q))
+        lib, _ = _sdpa_call(q, k, v, 0)
+        row = {"kernel": "flash_attention", "arch": cell, "route": "sm90",
+               "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+               "shape_q": list(q.shape), "shape_kv": list(k.shape),
+               "causal": True, "window": 0, "dtype": "bfloat16", "lse": True,
+               **err, "checked_batch_rows": 1, "ms": time_ms(fa, 20),
+               "device_ms": device_ms(fa),
+               "before_device_ms": device_ms(before_call),
+               "plain_ms": time_ms(lambda: flash_attention_ref(*one), 3),
+               "plain_ms_batch_rows": 1, "library_ms": time_ms(lib, 20),
+               "library_device_ms": device_ms(lib)}
+        row.update(flash_bound(s, hq, hkv, 64, torch.bfloat16, b=b))
+        row.update(_bound(row["bytes"] + 4.0 * b * hq * s, row["ops"],
+                          torch.bfloat16))
+        row["bound_pct"] = 100.0 * row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        del q, k, v, old, old_lse, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
 def flash_bound(s, hq, hkv, dh, dtype, window=0, b=1, skv=0,
                 causal=True) -> dict:
     """Bound of a flash attention of S queries over ``skv`` keys (S by
@@ -3015,6 +3097,7 @@ def phase_kernels(cfg, scfg, hcfg, fams, device, launches: dict) -> dict:
     rows = _earlier_rows(dev, rng, cfg, scfg, hcfg)
     rows += _control_plane_rows(dev, rng, cfg)
     rows += xent_rows(dev, rng, xent_runs(cfg, scfg, hcfg, fams))
+    rows += flash_sm90_rows(dev, rng)
     extra = _family_rows(dev, rng, fams) + _spmd_rows(dev, rng, fams[0])
     for r in rows + [r for r, _, _ in extra]:
         emit(r)

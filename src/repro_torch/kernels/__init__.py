@@ -32,5 +32,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Sets every count to 0, the flash forward's sm90 route's
+    (``flash_attention_fwd.sm90_launches``) too."""
     for fn in _launchers().values():
         fn.launches = 0
+    _launchers()["flash_attention"].sm90_launches = 0

@@ -1,5 +1,6 @@
 """Launchers of the CUDA flash attention: the forward
-(``csrc/flash_attention.cu``) and its backward (``csrc/flash_attention_bwd.cu``).
+(``csrc/flash_attention.cu``, and ``csrc/flash_attention_sm90.cu`` for the
+bf16 calls at width 64) and its backward (``csrc/flash_attention_bwd.cu``).
 
 The forward replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py``
 (``_fa_kernel`` / ``flash_attention_fwd``). The backward has no Pallas
@@ -30,9 +31,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         return_lse: bool = False, scale=None):
     """q: [B,S,Hq,dh]; k/v: [B,Skv,Hkv,dh]; contiguous CUDA tensors of one
-    dtype (fp32 or bf16), dh <= 256. The kernel runs at the next width of
-    64/128/256 and reads the missing head dims as zeros; the softmax scale
-    is ``scale``, None for the true ``dh ** -0.5``. With ``return_lse`` it
+    dtype (fp32 or bf16), dh <= 256. A call that :func:`takes_sm90` (bf16
+    at width 64) runs ``csrc/flash_attention_sm90.cu``; any other the kernel
+    of ``csrc/flash_attention.cu`` at the next width of 64/128/256, which
+    reads the missing head dims as zeros. The softmax scale is ``scale``,
+    None for the true ``dh ** -0.5``. With ``return_lse`` it
     returns ``(o, lse)``, lse [B,Hq,S] fp32 the natural-log log-sum-exp of
     each row's scaled logits (+inf for a row that sees no key), which the
     backward needs.
@@ -49,18 +52,40 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    sm90 = takes_sm90(q, k, v, scale)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, b, sq, skv, hq, hkv)
     with torch.cuda.device(q.device):
-        library.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(),
-                       lse.data_ptr() if lse is not None else None, b, sq,
-                       skv, hq, hkv, dh, int(bool(causal)), int(window),
-                       _softmax_scale(dh, scale), library.DTYPE_CODES[q.dtype],
-                       library.stream_of(q))
+        if sm90:
+            library.launch("flash_attention_sm90_launch", *args,
+                           int(bool(causal)), int(window),
+                           _softmax_scale(dh, scale), library.stream_of(q))
+        else:
+            library.launch("flash_attention_launch", *args, dh,
+                           int(bool(causal)), int(window),
+                           _softmax_scale(dh, scale),
+                           library.DTYPE_CODES[q.dtype], library.stream_of(q))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.sm90_launches += int(sm90)
     return (out, lse) if return_lse else out
 
 
+# every launch of the forward, and those of them on the sm90 route
 flash_attention_fwd.launches = 0
+flash_attention_fwd.sm90_launches = 0
+
+
+def takes_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale=None) -> bool:
+    """Whether a forward goes to ``csrc/flash_attention_sm90.cu`` rather
+    than ``csrc/flash_attention.cu``: bf16 at head width 64, q/k/v at
+    16-byte aligned addresses (the tensor maps' rule), at least one key and
+    a positive softmax scale (its softmax takes the row maximum of the raw
+    scores); any mask, length or GQA ratio. A function of what the wrapper
+    sees in its inputs alone."""
+    return (q.dtype == torch.bfloat16 and q.shape[3] == 64
+            and k.shape[1] > 0 and _softmax_scale(64, scale) > 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 def _softmax_scale(dh: int, scale) -> float:

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "wq_claim_empty_launch": ([_I, _I, _P], _I),
     "flash_attention_launch": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+    "flash_attention_sm90_launch": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
     "flash_attention_bwd_launch": ([_P] * 11 + [_I] * 9 + [_F, _I, _P], _I),
     "decode_attention_launch": (
         [_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),

@@ -9,6 +9,10 @@ mask allows (``key_tile`` keys each), and each half of every K/V tile's
 keys feeds its own online softmax (the two warps of a row), which rescales
 its running max, sum and accumulator per tile, in the log2 domain with the
 scale folded into log2(e) * scale; the two are merged once per query tile.
+The sm90 kernel (``csrc/flash_attention_sm90.cu``, bf16 at width 64) is
+the same model with 128-row query tiles walked by a persistent grid in a
+fixed order (``sm90_blocks``), 128-key tiles and one online softmax a row
+over all of them (``SM90``).
 Products are emulated as the kernel makes them: fp32 as 3xTF32 (each
 operand split into a high part, rounded to 11 significant bits or for K
 truncated to TF32, and a remainder that the tensor core truncates to TF32;
@@ -140,9 +144,23 @@ def block_tiles(nq, window):
     return out
 
 
-def kv_tiles(q0, skv, causal, window, bk):
-    """First keys of the K/V tiles query tile q0 visits."""
-    end = min(skv, q0 + BQ) if causal else skv
+def sm90_blocks(nq, bh, grid):
+    """The sm90 kernel's (query tile, batch x head) pairs of each of a grid
+    of ``grid`` persistent blocks, in its order: block x takes t = x, x +
+    grid, ...; t is query tile nq - 1 - t // bh (the longest causal tiles
+    first) of batch x head t % bh."""
+    return [[(nq - 1 - t // bh, t % bh) for t in range(x, nq * bh, grid)]
+            for x in range(grid)]
+
+
+# the sm90 kernel's tiling: query and key tiles of 128, one online softmax a
+# row over all of a tile's keys
+SM90 = {"bq": 128, "bk": 128, "halves": 1}
+
+
+def kv_tiles(q0, skv, causal, window, bk, bq=BQ):
+    """First keys of the K/V tiles query tile q0 (of ``bq`` rows) visits."""
+    end = min(skv, q0 + bq) if causal else skv
     begin = max(0, q0 - window + 1) if window > 0 else 0
     begin = begin // bk * bk
     return list(range(begin, end, bk))
@@ -163,28 +181,31 @@ def _exp2(x):
 
 @np.errstate(invalid="ignore")   # -inf - -inf where a row sees nothing yet
 def flash_model(q, k, v, *, causal=True, window=0, qk=mm_3xtf32_k,
-                pv=mm_3xtf32, bk=64):
+                pv=mm_3xtf32, bk=64, bq=BQ, halves=2):
     """The kernel's decomposition on numpy inputs q [B,S,Hq,dh], k/v
-    [B,Skv,Hkv,dh] (bf16 inputs as their fp32 values); fp32 output."""
+    [B,Skv,Hkv,dh] (bf16 inputs as their fp32 values); fp32 output. Query
+    tiles of ``bq`` rows, K/V tiles of ``bk`` keys, each cut into ``halves``
+    parts with an online softmax each (``**SM90``: the sm90 kernel's)."""
     b, s, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale2 = np.float32(np.float32(dh ** -0.5) * LOG2E)
     out = np.zeros(q.shape, np.float32)
-    nq = -(-s // BQ)
+    nq = -(-s // bq)
+    part = bk // halves
     for bi in range(b):
         for h in range(hq):
             kh = h // (hq // hkv)
             for tiles in block_tiles(nq, window):
                 for qt in tiles:
-                    rows = np.arange(qt * BQ, min(qt * BQ + BQ, s))
-                    # one online softmax per half of each tile's keys
-                    m = np.full((2, len(rows)), -np.inf, np.float32)
-                    l = np.zeros((2, len(rows)), np.float32)
-                    acc = np.zeros((2, len(rows), dh), np.float32)
-                    for k0 in kv_tiles(qt * BQ, skv, causal, window, bk):
-                        for half in range(2):
-                            lo = k0 + half * bk // 2
-                            cols = np.arange(lo, min(lo + bk // 2, skv))
+                    rows = np.arange(qt * bq, min(qt * bq + bq, s))
+                    # one online softmax per part of each tile's keys
+                    m = np.full((halves, len(rows)), -np.inf, np.float32)
+                    l = np.zeros((halves, len(rows)), np.float32)
+                    acc = np.zeros((halves, len(rows), dh), np.float32)
+                    for k0 in kv_tiles(qt * bq, skv, causal, window, bk, bq):
+                        for half in range(halves):
+                            lo = k0 + half * part
+                            cols = np.arange(lo, min(lo + part, skv))
                             if not len(cols):
                                 continue
                             sc = qk(q[bi, rows, h], k[bi, cols, kh].T)
@@ -251,12 +272,18 @@ def test_fp32_model_matches_refs_and_pallas(b, s, hq, hkv, dh, causal,
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
                                            (True, 2048), (False, 0),
                                            (False, 64)])
-@pytest.mark.parametrize("bk", [32, 64, 128])
+@pytest.mark.parametrize("bk", [32, 64, 128, "sm90"])
 def test_pairing_visits_each_visible_pair_once(s, causal, window, bk):
     """Every (query, key) pair the mask allows is computed exactly once
     (odd and even tile counts, S 1, a window at a tile edge: S 2048 + 64);
     with plain causal masking every two-tile block does nq or nq + 1 tiles
-    of work (64-key tiles), where the old grid's tiles did 1 to nq."""
+    of work (64-key tiles), where the old grid's tiles did 1 to nq. "sm90":
+    the sm90 kernel's persistent order over 3 (batch, head) pairs and a
+    grid of 4 blocks, each tile once, and with a causal mask no block's
+    tiles grow in work."""
+    if bk == "sm90":
+        _sm90_order_visits_each_visible_pair_once(s, causal, window)
+        return
     nq = -(-s // BQ)
     seen = np.zeros((s, s), np.int32)
     work = []
@@ -278,13 +305,39 @@ def test_pairing_visits_each_visible_pair_once(s, causal, window, bk):
         assert {n for t, n in work if t == 2} <= {nq, nq + 1}
 
 
+def _sm90_order_visits_each_visible_pair_once(s, causal, window, bh=3,
+                                              grid=4):
+    bq, bk = SM90["bq"], SM90["bk"]
+    nq = -(-s // bq)
+    seen = np.zeros((bh, s, s), np.int32)
+    for block in sm90_blocks(nq, bh, grid):
+        work = []
+        for qt, x in block:
+            rows = np.arange(qt * bq, min(qt * bq + bq, s))
+            starts = kv_tiles(qt * bq, s, causal, window, bk, bq)
+            for k0 in starts:
+                cols = np.arange(k0, min(k0 + bk, s))
+                seen[x][np.ix_(rows, cols)] += visible(rows, cols, causal,
+                                                        window, s)
+            work.append(len(starts))
+        if causal:
+            assert work == sorted(work, reverse=True)
+    allowed = visible(np.arange(s), np.arange(s), causal, window, s)
+    for x in range(bh):
+        assert np.array_equal(seen[x], allowed.astype(np.int32))
+    assert sorted(t for block in sm90_blocks(nq, bh, grid) for t in block) \
+        == [(qt, x) for qt in range(nq) for x in range(bh)]
+
+
 def _cut(case):
     """CPU cuts of the chip check's fp32 serve shapes: qwen2-0.5b (dh 64,
     GQA) and recurrentgemma-9b (dh 256, MQA), S 300 (ragged: 4 full tiles
     and 44 rows), and recurrentgemma-9b's window biting (96 at S 300)."""
     s, hq, hkv, dh, window = {"qwen2": (300, 4, 2, 64, 0),
                               "recurrentgemma": (300, 4, 1, 256, 0),
-                              "window": (300, 4, 1, 256, 96)}[case]
+                              "window": (300, 4, 1, 256, 96),
+                              "qwen2-sm90": (300, 4, 2, 64, 0),
+                              "window-sm90": (300, 4, 2, 64, 96)}[case]
     return _inputs(7, 1, s, hq, hkv, dh), dh, window
 
 
@@ -314,20 +367,22 @@ def test_3xtf32_holds_chip_limit_and_tf32_does_not(chip_smoke, case):
     assert errs["tf32"] > 1.0, errs
 
 
-@pytest.mark.parametrize("case", ["qwen2", "recurrentgemma", "window"])
+@pytest.mark.parametrize("case", ["qwen2", "recurrentgemma", "window",
+                                  "qwen2-sm90", "window-sm90"])
 def test_bf16_split_p_holds_chip_limit_and_one_bf16_p_does_not(chip_smoke,
                                                                case):
-    """Why the bf16 route splits P: with P = hi + lo in bf16 the model's
+    """Why the bf16 routes split P: with P = hi + lo in bf16 the model's
     bf16 output stays within the chip check's limit (1e-4 plus one bf16 step
-    of the value); with P rounded to bf16 once it misses it."""
+    of the value); with P rounded to bf16 once it misses it. "-sm90": the
+    sm90 kernel's tiling, 128-key tiles under one softmax a row."""
     (q, k, v), dh, window = _cut(case)
     qb, kb, vb = (torch.as_tensor(x).bfloat16() for x in (q, k, v))
     ref = flash_attention_ref(qb, kb, vb, window=window)
+    tiling = SM90 if case.endswith("-sm90") else {"bk": key_tile(dh, False)}
     errs = {}
     for name, pv in (("split", pv_bf16_split), ("one", pv_bf16)):
         got = flash_model(*(x.float().numpy() for x in (qb, kb, vb)),
-                          window=window, qk=mm_fp32, pv=pv,
-                          bk=key_tile(dh, False))
+                          window=window, qk=mm_fp32, pv=pv, **tiling)
         errs[name] = _over_tol(chip_smoke,
                                torch.as_tensor(got).bfloat16(), ref)
     assert errs["split"] <= 1.0, errs

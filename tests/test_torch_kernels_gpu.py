@@ -157,17 +157,36 @@ def test_wq_claim_empty_launch_is_not_counted(dev):
     # rows that are not whole 16-byte copies: staged element by element
     (1, 130, 4, 2, 50, True, 0, torch.float32),
     (1, 300, 4, 2, 100, True, 0, torch.bfloat16),
+    # bf16 at width 64, the sm90 kernel: the benchmark cells' heads and rows
+    # cut in batch (qwen2 14/2 at S 2048 and 8192, granite 24/8), S 1 and
+    # 1031 (17 and 2112 above), not causal, a window inside the key tiles
+    (2, 2048, 14, 2, 64, True, 0, torch.bfloat16),
+    (2, 2048, 24, 8, 64, True, 0, torch.bfloat16),
+    (1, 8192, 14, 2, 64, True, 0, torch.bfloat16),
+    (3, 1, 4, 2, 64, True, 0, torch.bfloat16),
+    (1, 1031, 4, 2, 64, True, 0, torch.bfloat16),
+    (1, 500, 4, 2, 64, False, 0, torch.bfloat16),
+    (2, 700, 6, 2, 64, True, 100, torch.bfloat16),
 ])
 def test_flash_kernel_equals_plain(dev, b, s, hq, hkv, dh, causal, window,
                                    dtype):
+    """The output, and the row LSE the train path's call also writes (1e-4,
+    the limit the backward's inputs are held to), against the plain
+    versions; a repeat is bit-identical."""
     rng = np.random.default_rng(s)
     q = _randn(rng, (b, s, hq, dh), dtype, dev)
     k, v = (_randn(rng, (b, s, hkv, dh), dtype, dev) for _ in range(2))
     got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
     _assert_close(got, want)
+    assert torch.equal(out, got)
+    assert float((lse - flash_attention_lse_ref(q, k, causal=causal,
+                                                window=window))
+                 .abs().max()) <= 1e-4
 
 
 # the enc-dec and cross-attention shapes: queries and keys of different
@@ -178,6 +197,8 @@ CROSS_CASES = [  # b, sq, skv, hq, hkv, dh, dtype
     (8, 256, 2048, 16, 16, 64, torch.bfloat16),   # cross-attention training
     (1, 1000, 300, 4, 2, 128, torch.float32),     # more queries than keys
     (2, 17, 1031, 6, 3, 64, torch.bfloat16),      # ragged, one query tile
+    (1, 1000, 300, 4, 2, 64, torch.bfloat16),     # the sm90 kernel: Sq > Skv
+    (2, 300, 1031, 24, 8, 64, torch.bfloat16),    # Sq < Skv, granite's GQA
 ]
 
 
@@ -251,6 +272,40 @@ def test_flash_kernel_repeats_bit_identical(dev, dtype):
     outs = [flash_attention_fwd(q, k, v) for _ in range(20)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, first) for o in outs)
+
+
+def test_flash_forward_routes_by_dtype_and_width(dev):
+    """bf16 at width 64 with 16-byte aligned q/k/v goes to the sm90 kernel,
+    whatever the mask, lengths or GQA ratio; fp32, the widths 128 and 256
+    and an unaligned q go to the kernel of csrc/flash_attention.cu, whose
+    results the other tests hold unchanged. ``flash_attention`` counts
+    every call, ``sm90_launches`` those on the sm90 route."""
+    rng = np.random.default_rng(5)
+
+    def call(b, sq, skv, hq, hkv, dh, dtype, **kw):
+        q = _randn(rng, (b, sq, hq, dh), dtype, dev)
+        k, v = (_randn(rng, (b, skv, hkv, dh), dtype, dev) for _ in range(2))
+        flash_attention_fwd(q, k, v, **kw)
+
+    reset_launch_counts()
+    call(1, 300, 300, 4, 2, 64, torch.bfloat16)
+    call(2, 17, 1031, 24, 8, 64, torch.bfloat16, causal=False)
+    call(1, 500, 500, 4, 1, 64, torch.bfloat16, window=100, return_lse=True)
+    assert flash_attention_fwd.sm90_launches == 3
+    call(1, 300, 300, 4, 2, 64, torch.float32)
+    for dh in (128, 256):
+        call(1, 300, 300, 4, 2, dh, torch.bfloat16)
+    # q 8 bytes past a 16-byte boundary (its rows stay whole 16-byte rows)
+    buf = torch.zeros(4 + 300 * 4 * 64, dtype=torch.bfloat16, device=dev)
+    q = buf[4:].view(1, 300, 4, 64)
+    kv = _randn(rng, (1, 300, 2, 64), torch.bfloat16, dev)
+    assert q.data_ptr() % 16 == 8
+    flash_attention_fwd(q, kv, kv)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.sm90_launches == 3
+    assert launch_counts()["flash_attention"] == 7
+    reset_launch_counts()
+    assert flash_attention_fwd.sm90_launches == 0
 
 
 @pytest.mark.parametrize("b,smax,hq,hkv,dh,kv_len,dtype", [
